@@ -1,0 +1,210 @@
+"""Level-scheduled sparse triangular solves for the G D Gᵀ preconditioner.
+
+Rows are grouped by dependency level (level(i) = 1 + max level over
+in-neighbours); each level is one data-parallel sweep.  Two builders:
+
+* ``build_schedules`` / ``_levels_from_edges`` — host (numpy)
+  construction, kept as the test oracle;
+* ``build_schedules_batched`` — the solve path: level propagation by
+  relaxation on the device for a whole fleet at once, then row-indexed
+  ELL panels (:class:`PackedSchedule`) that the masked fleet trisolve
+  reads in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from .ref_ac import ACFactor, DeviceFactor
+from .parac import _next_pow2, _run_ranks
+
+I64 = torch.int64
+
+
+@dataclasses.dataclass
+class LevelSchedule:
+    """COO edges of a unit-triangular solve, grouped by target-row level."""
+
+    n: int
+    n_levels: int
+    level_ptr: np.ndarray  # int64[n_levels+1] into the edge arrays
+    e_dst: np.ndarray      # int32[nnz] — row being solved
+    e_src: np.ndarray      # int32[nnz] — already-solved row it reads
+    e_val: np.ndarray      # f32[nnz]
+    level_of: np.ndarray   # int32[n]
+
+
+def _levels_from_edges(n: int, dst: np.ndarray, src: np.ndarray,
+                       val: np.ndarray) -> LevelSchedule:
+    """Group solve edges by level (longest-path levels by level-synchronous
+    relaxation, one vectorized pass per level)."""
+    level = np.zeros(n, np.int32)
+    while True:
+        cand = np.zeros(n, np.int32)
+        np.maximum.at(cand, dst, level[src] + 1)
+        new = np.maximum(level, cand)
+        if np.array_equal(new, level):
+            break
+        level = new
+    n_levels = int(level.max()) + 1 if n else 1
+    edge_level = level[dst]
+    eorder = np.argsort(edge_level, kind="stable")
+    e_dst, e_src, e_val = dst[eorder], src[eorder], val[eorder]
+    counts = np.bincount(edge_level[eorder], minlength=n_levels)
+    level_ptr = np.zeros(n_levels + 1, np.int64)
+    np.cumsum(counts, out=level_ptr[1:])
+    return LevelSchedule(n=n, n_levels=n_levels, level_ptr=level_ptr,
+                         e_dst=e_dst.astype(np.int32),
+                         e_src=e_src.astype(np.int32),
+                         e_val=e_val, level_of=level)
+
+
+def build_schedules(f: ACFactor) -> Tuple[LevelSchedule, LevelSchedule]:
+    """Forward (G y = r) and backward (Gᵀ x = z) host level schedules.
+    CSC entry (i ∈ col k) is forward edge dst=i/src=k; the backward solve
+    runs in flipped index space (dst = n-1-k, src = n-1-i)."""
+    n = f.n
+    cols = np.repeat(np.arange(n, dtype=np.int32),
+                     np.diff(f.col_ptr).astype(np.int64))
+    fwd = _levels_from_edges(n, f.rows.astype(np.int32), cols, f.vals)
+    bwd = _levels_from_edges(n, (n - 1) - cols,
+                             (n - 1) - f.rows.astype(np.int32), f.vals)
+    return fwd, bwd
+
+
+def solve_levels_np(sched: LevelSchedule, b: np.ndarray,
+                    flip: bool = False) -> np.ndarray:
+    """Host reference solve (numpy, float64)."""
+    y = (b[::-1] if flip else b).astype(np.float64).copy()
+    for lv in range(sched.n_levels):
+        lo, hi = sched.level_ptr[lv], sched.level_ptr[lv + 1]
+        if hi == lo:
+            continue
+        contrib = np.zeros(sched.n, np.float64)
+        np.add.at(contrib, sched.e_dst[lo:hi],
+                  sched.e_val[lo:hi].astype(np.float64)
+                  * y[sched.e_src[lo:hi]])
+        y -= contrib
+    return y[::-1] if flip else y
+
+
+def precond_apply_np(f: ACFactor, r: np.ndarray) -> np.ndarray:
+    fwd, bwd = build_schedules(f)
+    y = solve_levels_np(fwd, r)
+    dinv = np.where(f.D > 0, 1.0 / np.where(f.D > 0, f.D, 1.0), 0.0)
+    return solve_levels_np(bwd, y * dinv, flip=True)
+
+
+# ---------------------------------------------------------------------------
+# Batched (fleet) schedule construction — row-indexed panels
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PackedSchedule:
+    """One triangular solve as **row-indexed** ELL panels: row ``i``'s
+    in-edges occupy row ``i`` of ``cols``/``vals`` (zero-padded to K),
+    ``level_of[i]`` is its dependency level.  The backward schedule stays
+    in original index space (the masked level loop needs no topological
+    index order)."""
+
+    n: int                  # true rows (rows n..n_pad are phantom)
+    n_pad: int
+    n_levels: int           # this factor's own level count
+    K: int
+    cols: torch.Tensor      # int32[n_pad, K]
+    vals: torch.Tensor      # f32[n_pad, K]
+    level_of: torch.Tensor  # int32[n_pad] (0 for phantom rows)
+
+    @property
+    def device_bytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.cols, self.vals, self.level_of))
+
+
+def _propagate_levels_fleet(dst: torch.Tensor, src: torch.Tensor, *, n: int,
+                            check_every: int = 8) -> torch.Tensor:
+    """Longest-path levels of a batch of solve-edge sets ``(S, E)`` by
+    Jacobi relaxation (one level per pass), padding edges marked
+    ``dst == n`` (they land in a drop column).  The host reads the
+    "changed" flag every ``check_every`` passes; passes after convergence
+    change nothing."""
+    S = dst.shape[0]
+    level = torch.zeros((S, n + 1), dtype=torch.int32, device=dst.device)
+    while True:
+        for _ in range(check_every):
+            cand = torch.zeros_like(level).scatter_reduce_(
+                1, dst, torch.gather(level, 1, src) + 1, reduce="amax")
+            new = torch.maximum(level, cand)
+            new[:, n] = 0
+            changed = (new != level).any()
+            level = new
+        if not bool(changed):
+            return level[:, :n]
+
+
+def _pack_row_panels(dst: torch.Tensor, src: torch.Tensor, val: torch.Tensor,
+                     *, n: int, K: int):
+    """Row-indexed ELL packing of one edge set: edge ``e`` lands in slot
+    ``(dst_e, rank_e)``, rank = position within its dst group in edge
+    order.  Padding edges (``dst == n``) go to a dropped row."""
+    sd, order = torch.sort(dst, stable=True)
+    rank = _run_ranks(sd)
+    dest = torch.where(sd < n, sd * K + rank, n * K)
+    cols = torch.zeros(n * K + 1, dtype=torch.int32, device=dst.device)
+    vals = torch.zeros(n * K + 1, dtype=val.dtype, device=dst.device)
+    cols.scatter_(0, dest, src[order].to(torch.int32))
+    vals.scatter_(0, dest, val[order])
+    return cols[:n * K].view(n, K), vals[:n * K].view(n, K)
+
+
+def build_schedules_batched(devs: List[DeviceFactor]
+                            ) -> List[Tuple[PackedSchedule, PackedSchedule]]:
+    """Forward/backward :class:`PackedSchedule` s for a fleet of device
+    factors: level propagation runs once over a ``(2B, E_pad)`` batch of
+    every factor's forward and backward solve edges; each schedule is
+    then packed at its own shape (``n_pad = pow2(n)``,
+    ``K = pow2(max in-degree)``), so a factor's schedule depends on its
+    content alone.  Forward edges: CSC entry (i ∈ col k) ⇒ dst=i, src=k;
+    backward: dst=k, src=i."""
+    if not devs:
+        return []
+    B = len(devs)
+    dev = devs[0].device
+    n_bat = _next_pow2(max(d.n for d in devs))
+    E_bat = max(_next_pow2(max(d.nnz for d in devs)), 1)
+    DST = torch.full((2 * B, E_bat), n_bat, dtype=I64, device=dev)
+    SRC = torch.zeros((2 * B, E_bat), dtype=I64, device=dev)
+    VAL = torch.zeros((2 * B, E_bat), dtype=torch.float32, device=dev)
+    for b, d in enumerate(devs):
+        counts = torch.diff(d.col_ptr.to(I64))
+        cols_of = torch.repeat_interleave(
+            torch.arange(d.n, dtype=I64, device=dev), counts,
+            output_size=d.nnz)
+        rows = d.rows.to(I64)
+        DST[b, :d.nnz], SRC[b, :d.nnz] = rows, cols_of
+        DST[B + b, :d.nnz], SRC[B + b, :d.nnz] = cols_of, rows
+        VAL[b, :d.nnz] = VAL[B + b, :d.nnz] = d.vals
+    levels = _propagate_levels_fleet(DST, SRC, n=n_bat)
+    indeg = torch.zeros((2 * B, n_bat + 1), dtype=torch.int32,
+                        device=dev).scatter_add_(
+        1, DST, torch.ones_like(DST, dtype=torch.int32))[:, :n_bat]
+    kmax = indeg.max(dim=1).values.tolist()
+    nlv = levels.max(dim=1).values.tolist()
+    out: List[Tuple[PackedSchedule, PackedSchedule]] = []
+    for b, d in enumerate(devs):
+        n_pad = _next_pow2(d.n)
+        halves = []
+        for row in (b, B + b):                 # forward, then backward
+            K = max(_next_pow2(int(kmax[row])), 1)
+            cols, vals = _pack_row_panels(
+                torch.where(DST[row] < n_pad, DST[row], n_pad), SRC[row],
+                VAL[row], n=n_pad, K=K)
+            halves.append(PackedSchedule(
+                n=d.n, n_pad=n_pad, n_levels=int(nlv[row]) + 1, K=K,
+                cols=cols, vals=vals,
+                level_of=levels[row, :n_pad].contiguous()))
+        out.append((halves[0], halves[1]))
+    return out
