@@ -2,7 +2,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, one GPU
-    python3 chip_smoke.py --quick    # build + kernel checks + 16^3 factor only
 
 Phases (any failure exits non-zero; nothing falls back to the CPU path or
 to a plain version while a GPU is present):
@@ -34,8 +33,8 @@ to a plain version while a GPU is present):
            card could take (bytes over 3.35 TB/s, or fp32 operations over
            67 TFLOP/s, whichever is larger).
 
-The last two lines are the kernel table as JSON and
-{"ok": true, "device": {...}}.
+The last three lines are the kernel table as JSON, the card's name and
+power limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -206,14 +205,14 @@ def true_relres(g, x, b) -> float:
                  / np.linalg.norm(b))
 
 
-def phase_main(dev, side: int):
+def phase_main(dev):
     import numpy as np
     import torch
     from repro_torch.core.column_math import key_from_seed
     from repro_torch.core.solver import Solver
     from repro_torch.data import graphs
     from repro_torch.kernels import runtime
-    g = permuted(graphs.grid3d(side, side, side, "uniform", seed=2))
+    g = permuted(graphs.grid3d(64, 64, 64, "uniform", seed=2))
     rng = np.random.default_rng(0)
     b1 = rng.normal(size=g.n).astype(np.float32)
     B8 = rng.normal(size=(8, g.n)).astype(np.float32)
@@ -234,7 +233,7 @@ def phase_main(dev, side: int):
     torch.cuda.synchronize()
     t_solve8 = time.time() - t0
     launches = dict(runtime.LAUNCHES)
-    log(f"[main] grid3d {side}^3 n={g.n} m={g.m}: factor {t_factor:.2f}s "
+    log(f"[main] grid3d 64^3 n={g.n} m={g.m}: factor {t_factor:.2f}s "
         f"rounds={f.stats['rounds']} fill_slack={f.stats['fill_slack']} "
         f"overflow={f.stats['overflow']} nnz={f.nnz} "
         f"levels fwd={h.n_levels_fwd} bwd={h.n_levels_bwd} "
@@ -362,8 +361,11 @@ def phase_timing(dev, main, spmv_err):
     check(lib_rel <= 1e-4, f"torch.sparse.mm disagrees with the kernel "
                            f"({lib_rel:.2e})")
     lib_ms = time_ms(lambda: torch.sparse.mm(csr, XT))
-    nbytes = n_pad * K * 8 + L * n_pad * 4 + L * 4 + L * n_pad * 4
-    ops = 2 * L * n_pad * K
+    # a sparse product: the bound counts the panel's nonzero slots (index
+    # and value read once for all lanes), not its padding
+    nnz = int((v != 0).sum())
+    nbytes = nnz * 8 + L * n_pad * 4 + L * 4 + L * n_pad * 4
+    ops = 2 * L * nnz
     rows.append(dict(
         name="ell_spmv_fleet", route="cuda",
         source="src/repro_torch/csrc/ell_spmv_fleet.cu",
@@ -371,7 +373,7 @@ def phase_timing(dev, main, spmv_err):
         launches=main["launches"].get("ell_spmv_fleet", 0),
         max_abs_err=spmv_err, ms=ms, plain_ms=plain_ms,
         **bound(nbytes, ops), library_ms=lib_ms,
-        shape=f"L={L} R={n_pad} K={K}"))
+        shape=f"L={L} R={n_pad} K={K} nnz={nnz}"))
     for r in rows:
         log(f"[timing] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms, "
@@ -388,12 +390,7 @@ def bound(nbytes: float, ops: float) -> dict:
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--quick", action="store_true",
-                    help="build, kernel checks and the 16^3 factor only")
-    ap.add_argument("--side", type=int, default=64,
-                    help="grid side of the main path's grid3d graph")
-    args = ap.parse_args()
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -414,11 +411,9 @@ def main() -> None:
     card = phase_build(runtime)
     phase_clique(dev)
     phase_factor16(dev)
-    kernels = []
-    if not args.quick:
-        main_res = phase_main(dev, args.side)
-        spmv_err = phase_spmv(dev, main_res["handle"])
-        kernels = phase_timing(dev, main_res, spmv_err)
+    main_res = phase_main(dev)
+    spmv_err = phase_spmv(dev, main_res["handle"])
+    kernels = phase_timing(dev, main_res, spmv_err)
     log(f"[done] all phases passed in {time.time() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k != "shape"} for r in kernels]}))

@@ -98,11 +98,11 @@ def fleet_precondition(fa: FleetArrays, fidx: torch.Tensor, R: torch.Tensor,
     if active is not None:
         flv = torch.where(active, flv, 1)
         blv = torch.where(active, blv, 1)
-    Y = trisolve_fleet(fa.fcols, fa.fvals, fa.flevel[f], R,
-                       n_levels=f_levels, lane_levels=flv, fidx=fidx)
+    Y = trisolve_fleet(fa.fcols, fa.fvals, fidx, fa.flevel[f], R,
+                       n_levels=f_levels, lane_levels=flv)
     Z = Y * fa.dinv[f]
-    return trisolve_fleet(fa.bcols, fa.bvals, fa.blevel[f], Z,
-                          n_levels=b_levels, lane_levels=blv, fidx=fidx)
+    return trisolve_fleet(fa.bcols, fa.bvals, fidx, fa.blevel[f], Z,
+                          n_levels=b_levels, lane_levels=blv)
 
 
 def _fleet_project(Y: torch.Tensor, nvalid: torch.Tensor) -> torch.Tensor:

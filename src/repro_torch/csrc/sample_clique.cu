@@ -289,8 +289,6 @@ int launch(const int* ids, const float* ws, const int* fill, const float* u,
 
 }  // namespace
 
-extern "C" int sample_clique_max_width() { return 16384; }
-
 // Returns a cudaError_t; 0 on a successful launch.  W must be a power of
 // two in [2, 16384]; the wrapper checks shapes, types and contiguity.
 extern "C" int sample_clique_launch(

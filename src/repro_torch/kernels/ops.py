@@ -33,24 +33,22 @@ def sample_clique(ids, ws, fill, u) -> ColumnElim:
                              u.contiguous())
 
 
-def ell_spmv_fleet(cols, vals, x, fidx: Optional[torch.Tensor] = None):
-    """Lane-batched ELL SpMV ``[L, R]``.  Without ``fidx`` cols/vals are
-    per-lane panels ``[L, R, K]`` (the reference's signature); with it
-    they are a fleet stack ``[F, R, K]`` read through ``fidx`` ``[L]``."""
-    if fidx is None:
-        fidx = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
+def ell_spmv_fleet(cols, vals, fidx, x) -> torch.Tensor:
+    """Lane-batched ELL SpMV ``[L, R]``: lane ``l`` multiplies ``x[l]`` by
+    the panel ``fidx[l]`` of the fleet stack ``cols``/``vals``
+    ``[F, R, K]`` (a per-lane stack passes ``fidx = arange(L)``)."""
     return _spmv.ell_spmv_fleet(cols, vals, fidx.to(torch.int32), x)
 
 
-def trisolve_fleet(cols, vals, level_of, y, *, n_levels: int,
-                   lane_levels: Optional[torch.Tensor] = None,
-                   fidx: Optional[torch.Tensor] = None) -> torch.Tensor:
+def trisolve_fleet(cols, vals, fidx, level_of, y, *, n_levels: int,
+                   lane_levels: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """Lane-batched level-masked unit-triangular solve.  Each level runs
     the full-row fleet SpMV and commits the rows at that level:
     ``y = where(level_of == lv, y - A y, y)`` for ``lv = 1 .. bound-1``.
 
-    ``cols``/``vals`` are per-lane panels ``[L, n, K]`` or, with
-    ``fidx``, a fleet stack ``[F, n, K]``; ``level_of`` is ``[L, n]``.
+    ``cols``/``vals`` are a fleet stack ``[F, n, K]`` read through
+    ``fidx`` ``[L]``; ``level_of`` is ``[L, n]``.
     ``n_levels`` is the static ceiling; ``lane_levels`` ``[L]`` (each
     lane's true level count) lowers the bound to the batch's live maximum
     — one host read per solve.  A level past a lane's depth selects none
@@ -59,6 +57,6 @@ def trisolve_fleet(cols, vals, level_of, y, *, n_levels: int,
     if lane_levels is not None:
         bound = min(int(lane_levels.max()), n_levels)
     for lv in range(1, bound):
-        contrib = ell_spmv_fleet(cols, vals, y, fidx)
+        contrib = ell_spmv_fleet(cols, vals, fidx, y)
         y = torch.where(level_of == lv, y - contrib, y)
     return y

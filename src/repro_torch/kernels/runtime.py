@@ -11,9 +11,10 @@ Device policy (no environment switch):
 
 Build: every ``csrc/*.cu`` is compiled on first use by
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false -shared``
-into ``build/repro_torch_kernels/`` at the root of the checkout and
-loaded with ``ctypes`` (plain C entry points, no PyTorch headers, so a
-build takes seconds).  ``--fmad=false`` keeps nvcc from contracting a
+into ``build/repro_torch_kernels/`` at the root of the checkout (an
+installed package uses ``~/.cache/repro_torch_kernels/``) and loaded
+with ``ctypes`` (plain C entry points, no PyTorch headers, so a build
+takes seconds).  ``--fmad=false`` keeps nvcc from contracting a
 multiply-add into one rounding anywhere the kernel does not ask for it
 explicitly — the elimination kernel must be bit-identical to its plain
 version.  Library names carry a hash of the source, so an edited kernel
@@ -33,7 +34,13 @@ from typing import Dict, Iterable, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+_CHECKOUT = Path(__file__).resolve().parents[3]
+# inside a checkout (src/ layout) the kernels build into its git-ignored
+# build/; an installed package builds into the user's cache instead
+BUILD_DIR = (_CHECKOUT / "build" / "repro_torch_kernels"
+             if (_CHECKOUT / "pyproject.toml").is_file()
+             and CSRC.parents[1].name == "src"
+             else Path.home() / ".cache" / "repro_torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]

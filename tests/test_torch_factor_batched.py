@@ -94,7 +94,8 @@ def test_host_schedules_match_reference_and_solve(fleets):
     fwd, bwd = st[i]
     y = torch.zeros((1, fwd.n_pad))
     y[0, :fwd.n] = torch.from_numpy(r)
-    got = trisolve_fleet(fwd.cols[None], fwd.vals[None], fwd.level_of[None],
-                         y, n_levels=fwd.n_levels)
+    got = trisolve_fleet(fwd.cols[None], fwd.vals[None],
+                         torch.zeros(1, dtype=torch.int32),
+                         fwd.level_of[None], y, n_levels=fwd.n_levels)
     host = ttri.solve_levels_np(ht[0], r)
     assert np.allclose(got[0, :fwd.n].numpy(), host, rtol=1e-5, atol=1e-5)

@@ -62,6 +62,7 @@ def test_plain_spmv_fleet_vs_pallas_interpret(L, R, K, n):
         jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(x),
         interpret=True))
     got = tops.ell_spmv_fleet(torch.from_numpy(cols), torch.from_numpy(vals),
+                              torch.arange(L, dtype=torch.int32),
                               torch.from_numpy(x)).numpy()
     # summation order differs between XLA and the port for K > 16
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
