@@ -27,11 +27,29 @@ to a plain version while a GPU is present):
            shapes (its forward panels, 1 and 8 lanes): relative error
            <= 1e-5, and a lane alone bitwise equal to the same lane inside
            the 8-lane batch.
+  library  the library path through the user entry points, launch counts
+           reset just before and read just after: factorize_wavefront of
+           the main path's graph with its settings and key (bit-identical to
+           the main path's handle factor), make_preconditioner (level-sorted
+           device schedules), then laplacian_pcg (1 rhs) and
+           laplacian_pcg_batched (the same 8 rhs as the main path), tol
+           1e-6, maxiter 500.  Every lane must converge with a true residual
+           below 1e-4, ell_spmv and ell_spmv_multi must have launched, and
+           lane 0 of the block, solved alone afterwards, must take the same
+           iterates bit for bit.
+  slabs    ell_spmv and ell_spmv_multi (8 columns) vs their plain versions
+           on level slabs of the library path's schedules (the largest
+           forward and backward slabs and a small ragged one): relative
+           error <= 1e-5; ell_spmv bitwise equal to ell_spmv_fleet's lane
+           on the same slab, and each ell_spmv_multi column bitwise equal to
+           ell_spmv of that column.
   timing   each kernel, its plain version and (where one exists) one
            PyTorch library call for the same function, timed with CUDA
-           events at the main path's shapes, beside the least time the
-           card could take (bytes over 3.35 TB/s, or fp32 operations over
-           67 TFLOP/s, whichever is larger).
+           events at the main path's shapes (the library path's largest
+           forward slab for ell_spmv and ell_spmv_multi), beside the least
+           time the card could take (bytes over 3.35 TB/s, or fp32
+           operations over 67 TFLOP/s, whichever is larger); and one
+           preconditioner apply of each path on the same factor.
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -97,16 +115,19 @@ def permuted(g):
     return g.permute(perm).coalesce()
 
 
+KERNELS = ("sample_clique", "ell_spmv_fleet", "ell_spmv", "ell_spmv_multi")
+
+
 def phase_build(runtime):
     t0 = time.time()
-    reports = runtime.build(["sample_clique", "ell_spmv_fleet"])
-    log(f"[build] both kernels built in {time.time() - t0:.1f}s (nvcc, "
-        f"sm_90a, parallel)")
+    reports = runtime.build(KERNELS)
+    log(f"[build] {len(KERNELS)} kernels built in {time.time() - t0:.1f}s "
+        f"(nvcc, sm_90a, one process each, in parallel)")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    for name in ("sample_clique", "ell_spmv_fleet"):
+    for name in KERNELS:
         runtime.load(name)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -259,7 +280,7 @@ def phase_main(dev):
               f"main path never launched the {name} kernel")
     return dict(solver=solver, handle=h, launches=launches,
                 t_factor=t_factor, t_solve1=t_solve1, t_solve8=t_solve8,
-                graph=g)
+                graph=g, b1=b1, B8=B8, r1=r1, r8=r8)
 
 
 def phase_spmv(dev, h):
@@ -293,6 +314,224 @@ def phase_spmv(dev, h):
     log("[spmv] each of 8 lanes alone == the same lane in the 8-lane batch, "
         "bit for bit")
     return worst
+
+
+def phase_library(dev, main):
+    import numpy as np
+    import torch
+    from repro_torch.core.column_math import key_from_seed
+    from repro_torch.core.parac import factorize_wavefront
+    from repro_torch.core.pcg import laplacian_pcg, laplacian_pcg_batched
+    from repro_torch.core.trisolve import make_preconditioner
+    from repro_torch.kernels import runtime
+    g, b1, B8 = main["graph"], main["b1"], main["B8"]
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    t0 = time.time()
+    f = factorize_wavefront(g, key_from_seed(0), chunk=256, fill_slack=32,
+                            strict=True, device=dev)
+    torch.cuda.synchronize()
+    t_factor = time.time() - t0
+    t0 = time.time()
+    apply = make_preconditioner(f)
+    torch.cuda.synchronize()
+    t_prec = time.time() - t0
+    t0 = time.time()
+    r1 = laplacian_pcg(g, apply, torch.from_numpy(b1).to(dev), tol=1e-6,
+                       maxiter=500)
+    torch.cuda.synchronize()
+    t_solve1 = time.time() - t0
+    t0 = time.time()
+    r8 = laplacian_pcg_batched(g, lambda R: apply(R.T).T,
+                               torch.from_numpy(B8).to(dev), tol=1e-6,
+                               maxiter=500)
+    torch.cuda.synchronize()
+    t_solve8 = time.time() - t0
+    launches = dict(runtime.LAUNCHES)
+    # lane independence on the card: lane 0 of the block, solved alone
+    r0 = laplacian_pcg(g, apply, torch.from_numpy(B8[0]).to(dev), tol=1e-6,
+                       maxiter=500)
+    check(int(r0.iters) == int(r8.iters[0])
+          and bitwise_equal(r0.x, r8.x[0]),
+          "library path: lane 0 of the 8-rhs solve differs from the same "
+          "rhs solved alone")
+    hf = main["handle"].factor
+    for name in ("col_ptr", "rows", "vals", "D"):
+        a, b = getattr(f, name), getattr(hf, name)
+        if a.dtype == np.float32:
+            a, b = a.view(np.uint32), b.view(np.uint32)
+        check(a.shape == b.shape and np.array_equal(a, b),
+              f"library path: factorize_wavefront's {name} differs from the "
+              f"main path's handle factor")
+    it1, it8 = int(r1.iters), r8.iters.cpu().numpy()
+    m1, m8 = int(main["r1"].iters), main["r8"].iters.cpu().numpy()
+    log(f"[library] factorize_wavefront {t_factor:.2f}s == main path's "
+        f"handle factor bit for bit (nnz={f.nnz}, rounds="
+        f"{f.stats['rounds']}, fill_slack={f.stats['fill_slack']}); "
+        f"make_preconditioner {t_prec:.2f}s")
+    log(f"[library] solve 1 rhs {t_solve1:.2f}s iters={it1} (main path "
+        f"{main['t_solve1']:.2f}s, {m1}) relres={float(r1.relres):.3e}; "
+        f"solve 8 rhs {t_solve8:.2f}s iters={it8.min()}..{it8.max()} (main "
+        f"path {main['t_solve8']:.2f}s, {m8.min()}..{m8.max()}) max relres="
+        f"{float(r8.relres.max()):.3e}")
+    log(f"[library] launches: {launches}; ell_spmv per 1-rhs apply "
+        f"{launches.get('ell_spmv', 0) / (it1 + 1):.1f}")
+    log("[library] lane 0 of the 8-rhs solve == the same rhs solved alone, "
+        "bit for bit (x and iterations)")
+    check(bool(r1.converged) and bool(r8.converged.all()),
+          "library path: a lane did not converge")
+    xs = [r1.x.cpu().numpy()] + list(r8.x.cpu().numpy())
+    for x, b in zip(xs, [b1] + list(B8)):
+        check(np.all(np.isfinite(x)) and x.shape == (g.n,),
+              "library path: non-finite or misshapen solution")
+        rr = true_relres(g, x, b)
+        check(rr < 1e-4, f"library path: true residual {rr:.2e} of a "
+                         f"converged lane")
+    for name in ("ell_spmv", "ell_spmv_multi"):
+        check(launches.get(name, 0) > 0,
+              f"library path never launched the {name} kernel")
+    return dict(factor=f, launches=launches, t_factor=t_factor,
+                t_prec=t_prec, t_solve1=t_solve1, t_solve8=t_solve8)
+
+
+def slab_rows(sched, which: str):
+    """(lo, hi) of the schedule's largest level slab, or of a small ragged
+    one (2 to 63 rows, not a multiple of 8; else the smallest)."""
+    import numpy as np
+    sizes = np.diff(sched.row_ptr)
+    lv = np.arange(sizes.size)
+    live = (lv >= 1) & (sizes > 0)
+    if which == "largest":
+        pick = int(lv[live][np.argmax(sizes[live])])
+    else:
+        ragged = live & (sizes > 1) & (sizes < 64) & (sizes % 8 != 0)
+        pool = lv[ragged] if ragged.any() else lv[live]
+        pick = int(pool[np.argmin(sizes[pool])])
+    return int(sched.row_ptr[pick]), int(sched.row_ptr[pick + 1])
+
+
+def phase_slabs(dev, lib):
+    import torch
+    from repro_torch.core.trisolve import build_schedules_device
+    from repro_torch.kernels import spmv
+    fwd, bwd = build_schedules_device(lib["factor"])
+    log(f"[slabs] device schedules: fwd levels={fwd.n_levels} K={fwd.K}, "
+        f"bwd levels={bwd.n_levels} K={bwd.K}")
+    n = fwd.n
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(n, generator=gen, device=dev)
+    X = torch.randn((n, 8), generator=gen, device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    worst = {"ell_spmv": 0.0, "ell_spmv_multi": 0.0}
+    for sched, tag, which in ((fwd, "fwd", "largest"), (bwd, "bwd",
+                                                        "largest"),
+                              (fwd, "fwd", "ragged")):
+        lo, hi = slab_rows(sched, which)
+        c, v = sched.cols[lo:hi], sched.vals[lo:hi]
+        y = spmv.ell_spmv(c, v, x)
+        Y = spmv.ell_spmv_multi(c, v, X)
+        for name, k, p in (("ell_spmv", y, spmv.ell_spmv_plain(c, v, x)),
+                           ("ell_spmv_multi", Y,
+                            spmv.ell_spmv_multi_plain(c, v, X))):
+            torch.cuda.synchronize()
+            err = float((k - p).abs().max())
+            rel = err / max(float(p.abs().max()), 1e-30)
+            check(rel <= 1e-5, f"{name} {tag} {which} slab: relative error "
+                               f"{rel:.2e}")
+            worst[name] = max(worst[name], err)
+            log(f"[slabs] {name} {tag} {which} slab R={hi - lo} K={sched.K}: "
+                f"max abs err {err:.3e} (relative {rel:.2e})")
+        lane = spmv.ell_spmv_fleet(c[None], v[None], zero, x[None])[0]
+        check(bitwise_equal(y, lane), f"ell_spmv differs from the fleet "
+                                      f"kernel's lane on the {tag} slab")
+        for b in range(8):
+            check(bitwise_equal(Y[:, b], spmv.ell_spmv(c, v,
+                                                       X[:, b].contiguous())),
+                  f"ell_spmv_multi column {b} differs from ell_spmv on the "
+                  f"{tag} slab")
+    log("[slabs] ell_spmv == ell_spmv_fleet's lane and each ell_spmv_multi "
+        "column == ell_spmv of that column, bit for bit, on every slab")
+    return dict(fwd=fwd, bwd=bwd, worst=worst)
+
+
+def slab_rows_timing(dev, slabs, lib):
+    """Timing rows of ell_spmv and ell_spmv_multi (8 columns) at the
+    library path's largest forward slab."""
+    import torch
+    from repro_torch.kernels import spmv
+    fwd = slabs["fwd"]
+    lo, hi = slab_rows(fwd, "largest")
+    c, v = fwd.cols[lo:hi], fwd.vals[lo:hi]
+    R, K, n = hi - lo, fwd.K, fwd.n
+    nnz = int((v != 0).sum())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        csr = torch.sparse_csr_tensor(
+            torch.arange(0, R * K + 1, K, device=dev), c.reshape(-1).long(),
+            v.reshape(-1), size=(R, n), check_invariants=False)
+    rows = []
+    for name, B in (("ell_spmv", 1), ("ell_spmv_multi", 8)):
+        x = torch.randn((n, B), device=dev)
+        if name == "ell_spmv":
+            x = x[:, 0].contiguous()
+            kern = lambda: spmv.ell_spmv(c, v, x)               # noqa: E731
+            plain = lambda: spmv.ell_spmv_plain(c, v, x)        # noqa: E731
+            lib_call = lambda: torch.sparse.mm(csr, x[:, None])  # noqa: E731
+        else:
+            kern = lambda: spmv.ell_spmv_multi(c, v, x)         # noqa: E731
+            plain = lambda: spmv.ell_spmv_multi_plain(c, v, x)  # noqa: E731
+            lib_call = lambda: torch.sparse.mm(csr, x)          # noqa: E731
+        y_k = kern().reshape(R, B)
+        y_l = lib_call().reshape(R, B)
+        torch.cuda.synchronize()
+        lib_rel = float((y_l - y_k).abs().max()) / max(
+            float(y_k.abs().max()), 1e-30)
+        check(lib_rel <= 1e-4, f"torch.sparse.mm disagrees with {name} "
+                               f"({lib_rel:.2e})")
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain, reps=3)
+        lib_ms = time_ms(lib_call)
+        # nonzero slots read once for all columns, x read and y written once
+        nbytes = nnz * 8 + n * B * 4 + R * B * 4
+        rows.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
+            replaces="src/repro/kernels/spmv.py:"
+                     + ("65" if name == "ell_spmv" else "139"),
+            launches=lib["launches"].get(name, 0),
+            max_abs_err=slabs["worst"][name], ms=ms, plain_ms=plain_ms,
+            **bound(nbytes, 2 * B * nnz), library_ms=lib_ms,
+            shape=f"R={R} K={K} B={B} nnz={nnz} padded_bytes={R * K * 8}"))
+    log_rows(rows)
+    return rows
+
+
+def apply_timing(dev, main, slabs):
+    """One preconditioner apply of each path on the same factor, 1 and 8
+    right-hand sides: the main path's masked fleet sweeps and the library
+    path's level slabs."""
+    import torch
+    from repro_torch.core.trisolve import make_preconditioner_from_schedules
+    from repro_torch.kernels import runtime
+    h = main["handle"]
+    apply = make_preconditioner_from_schedules(slabs["fwd"], slabs["bwd"],
+                                               h.factor.device.D)
+    n = h.n
+    r1 = torch.randn(n, device=dev)
+    R8 = torch.randn((n, 8), device=dev)
+    out = {}
+    for tag, fn, reps in (
+            ("main 1 rhs", lambda: h.precondition(r1), 3),
+            ("library 1 rhs", lambda: apply(r1), 5),
+            ("main 8 rhs", lambda: h.precondition(R8), 2),
+            ("library 8 rhs", lambda: apply(R8), 5)):
+        ms = time_ms(fn, reps=reps)
+        runtime.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        out[tag] = ms
+        log(f"[timing] preconditioner apply, {tag}: {ms:.2f} ms, launches "
+            f"{dict(runtime.LAUNCHES)}")
+    return out
 
 
 def phase_timing(dev, main, spmv_err):
@@ -374,12 +613,16 @@ def phase_timing(dev, main, spmv_err):
         max_abs_err=spmv_err, ms=ms, plain_ms=plain_ms,
         **bound(nbytes, ops), library_ms=lib_ms,
         shape=f"L={L} R={n_pad} K={K} nnz={nnz}"))
+    log_rows(rows)
+    return rows
+
+
+def log_rows(rows) -> None:
     for r in rows:
         log(f"[timing] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"launches {r['launches']}")
-    return rows
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -413,7 +656,11 @@ def main() -> None:
     phase_factor16(dev)
     main_res = phase_main(dev)
     spmv_err = phase_spmv(dev, main_res["handle"])
+    lib_res = phase_library(dev, main_res)
+    slabs = phase_slabs(dev, lib_res)
     kernels = phase_timing(dev, main_res, spmv_err)
+    kernels += slab_rows_timing(dev, slabs, lib_res)
+    apply_timing(dev, main_res, slabs)
     log(f"[done] all phases passed in {time.time() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k != "shape"} for r in kernels]}))

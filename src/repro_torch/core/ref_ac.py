@@ -15,6 +15,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..kernels.runtime import resolve_device
 from .laplacian import Graph
 from .column_math import column_uniforms, INVALID_ID
 
@@ -65,12 +66,12 @@ class ACFactor:
         return int(self.rows.shape[0])
 
     def to_device(self, device=None) -> DeviceFactor:
-        """Device view, cached; uploaded on first use (``device`` defaults
-        to the cached view's device, else the CPU)."""
+        """Device view, cached; uploaded on first use.  ``device``
+        defaults to the cached view's device, else to the GPU (an error
+        where there is none: the CPU is used only when asked for)."""
         if self.device is None or (device is not None and
                                    torch.device(device) != self.device.device):
-            dev = torch.device(device) if device is not None else \
-                torch.device("cpu")
+            dev = resolve_device(device)
             self.device = DeviceFactor(
                 col_ptr=torch.as_tensor(self.col_ptr.astype(np.int32),
                                         device=dev),

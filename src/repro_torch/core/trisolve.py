@@ -1,23 +1,28 @@
 """Level-scheduled sparse triangular solves for the G D Gᵀ preconditioner.
 
 Rows are grouped by dependency level (level(i) = 1 + max level over
-in-neighbours); each level is one data-parallel sweep.  Two builders:
+in-neighbours); each level is one data-parallel sweep.  Three builders:
 
 * ``build_schedules`` / ``_levels_from_edges`` — host (numpy)
   construction, kept as the test oracle;
-* ``build_schedules_batched`` — the solve path: level propagation by
+* ``build_schedules_batched`` — the Solver's path: level propagation by
   relaxation on the device for a whole fleet at once, then row-indexed
   ELL panels (:class:`PackedSchedule`) that the masked fleet trisolve
-  reads in place.
+  reads in place;
+* ``build_schedules_device`` — the library path (``make_preconditioner``):
+  level-sorted ELL panels (:class:`DeviceSchedule`) whose level slabs the
+  SpMV kernels read in place, one launch per level.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from functools import partial
+from typing import List, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..kernels import ops
 from .ref_ac import ACFactor, DeviceFactor
 from .parac import _next_pow2, _run_ranks
 
@@ -208,3 +213,129 @@ def build_schedules_batched(devs: List[DeviceFactor]
                 level_of=levels[row, :n_pad].contiguous()))
         out.append((halves[0], halves[1]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Level-sorted device schedules — the library path (make_preconditioner)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DeviceSchedule:
+    """Level schedule with rows packed into **level-sorted** ELL panels,
+    built on the device.  ``row_ids`` lists rows sorted by (level, row);
+    level ``lv`` owns rows ``row_ids[row_ptr[lv]:row_ptr[lv+1]]`` and the
+    same row range of ``cols``/``vals``, a contiguous slab that the SpMV
+    kernels read in place.  Only ``row_ptr`` and ``n_levels`` live on the
+    host (loop bounds).  The backward schedule lives in **flipped** index
+    space (solve row ``i`` is vertex ``n-1-i``), unlike
+    :class:`PackedSchedule`."""
+
+    n: int
+    n_levels: int
+    K: int                  # panel width = max in-degree (>= 1), exact
+    row_ids: torch.Tensor   # int32[n] — rows sorted by (level, row)
+    row_ptr: np.ndarray     # int64[n_levels+1] into row_ids/cols/vals
+    cols: torch.Tensor      # int32[n, K] — in-edge sources, 0-padded
+    vals: torch.Tensor      # f32[n, K]   — in-edge values, 0-padded
+    level_of: torch.Tensor  # int32[n]
+
+
+def _propagate_levels(dst: torch.Tensor, src: torch.Tensor, *,
+                      n: int) -> torch.Tensor:
+    """Longest-path levels of one solve-edge set (int64 ``dst``/``src``):
+    the fleet relaxation with one member, so the host reads the
+    "changed" flag every 8 passes, not after each."""
+    return _propagate_levels_fleet(dst[None], src[None], n=n)[0]
+
+
+def _pack_ell_panels(dst, src, val, level, *, n: int, K: int):
+    """Scatter solve edges into level-sorted ELL panels in one pass: rows
+    sorted by level (stable, so by row within a level), each row's
+    in-edges packed into its K slots in edge order."""
+    row_ids = torch.sort(level, stable=True).indices
+    row_rank = torch.empty(n, dtype=I64, device=dst.device)
+    row_rank[row_ids] = torch.arange(n, dtype=I64, device=dst.device)
+    sd, eorder = torch.sort(dst, stable=True)
+    dest = row_rank[sd] * K + _run_ranks(sd)
+    cols = torch.zeros(n * K, dtype=torch.int32, device=dst.device)
+    vals = torch.zeros(n * K, dtype=val.dtype, device=dst.device)
+    cols.scatter_(0, dest, src[eorder].to(torch.int32))
+    vals.scatter_(0, dest, val[eorder])
+    return row_ids.to(torch.int32), cols.view(n, K), vals.view(n, K)
+
+
+def _schedule_from_edges_device(n: int, dst: torch.Tensor, src: torch.Tensor,
+                                val: torch.Tensor) -> DeviceSchedule:
+    """Device schedule from COO solve edges (``dst`` reads ``src``).  Host
+    work is O(n_levels) slicing metadata; two host reads (K, levels)."""
+    dev = val.device
+    if dst.shape[0] == 0:
+        return DeviceSchedule(
+            n=n, n_levels=1, K=1,
+            row_ids=torch.arange(n, dtype=torch.int32, device=dev),
+            row_ptr=np.array([0, n], np.int64),
+            cols=torch.zeros((n, 1), dtype=torch.int32, device=dev),
+            vals=torch.zeros((n, 1), dtype=torch.float32, device=dev),
+            level_of=torch.zeros(n, dtype=torch.int32, device=dev))
+    dst, src = dst.to(I64), src.to(I64)
+    level = _propagate_levels(dst, src, n=n)
+    K = max(int(torch.bincount(dst, minlength=n).max()), 1)
+    row_ids, cols, vals = _pack_ell_panels(dst, src, val, level, n=n, K=K)
+    level_h = level.cpu().numpy()
+    n_levels = int(level_h.max()) + 1
+    row_ptr = np.searchsorted(np.sort(level_h),
+                              np.arange(n_levels + 1)).astype(np.int64)
+    return DeviceSchedule(n=n, n_levels=n_levels, K=K, row_ids=row_ids,
+                          row_ptr=row_ptr, cols=cols, vals=vals,
+                          level_of=level)
+
+
+def build_schedules_device(f: Union[ACFactor, DeviceFactor], device=None
+                           ) -> Tuple[DeviceSchedule, DeviceSchedule]:
+    """Forward/backward :class:`DeviceSchedule` s straight from the factor's
+    device view (``f.to_device(device)``: the cached view, else the GPU
+    unless ``device`` says otherwise).  CSC entry (i ∈ col k) is forward
+    edge dst=i/src=k; the backward solve runs in flipped index space so
+    ascending indices stay topological."""
+    dev = f.to_device(device)
+    n = dev.n
+    cols_of = torch.repeat_interleave(
+        torch.arange(n, dtype=I64, device=dev.device),
+        torch.diff(dev.col_ptr.to(I64)), output_size=dev.nnz)
+    rows = dev.rows.to(I64)
+    fwd = _schedule_from_edges_device(n, rows, cols_of, dev.vals)
+    bwd = _schedule_from_edges_device(n, (n - 1) - cols_of, (n - 1) - rows,
+                                      dev.vals)
+    return fwd, bwd
+
+
+def make_ell_solver(sched: DeviceSchedule, flip: bool = False):
+    """Unit-triangular solve over a schedule's level slabs for a single
+    rhs ``(n,)`` or a block ``(n, nrhs)``: ``ops.trisolve_panels``, one
+    SpMV kernel launch per non-empty level."""
+    return partial(ops.trisolve_panels, sched, flip=flip)
+
+
+def make_preconditioner_from_schedules(fwd: DeviceSchedule,
+                                       bwd: DeviceSchedule, D: torch.Tensor):
+    """``r -> (G D Gᵀ)⁺ r`` from pre-built device schedules, for ``r`` of
+    shape ``(n,)`` or ``(n, nrhs)``."""
+    fsolve = make_ell_solver(fwd)
+    bsolve = make_ell_solver(bwd, flip=True)
+    dinv = torch.where(D > 0, 1.0 / torch.where(D > 0, D, 1.0), 0.0)
+
+    def apply(r: torch.Tensor) -> torch.Tensor:
+        y = fsolve(r)
+        return bsolve(y * (dinv if y.dim() == 1 else dinv[:, None]))
+
+    return apply
+
+
+def make_preconditioner(f: Union[ACFactor, DeviceFactor], device=None):
+    """``r -> (G D Gᵀ)⁺ r`` via two level-scheduled solves over device
+    schedules, for ``r`` of shape ``(n,)`` or ``(n, nrhs)``.  Runs where
+    ``f.to_device(device)`` puts the factor: its cached device view, else
+    the GPU unless ``device`` says otherwise."""
+    dev = f.to_device(device)
+    fwd, bwd = build_schedules_device(dev)
+    return make_preconditioner_from_schedules(fwd, bwd, dev.D)

@@ -8,16 +8,14 @@
 // reads the stack [F, R, K] in place through fidx, so an apply copies no
 // panels at all.
 //
-// Layout: a group of G = min(32, pow2(K)) threads owns one (lane, row):
-// thread g sums k = g, g+G, g+2G, ... in order (separate multiply and add,
-// built with --fmad=false), then the group reduces by a fixed xor
-// butterfly.  The sum order depends on K alone, so a lane's output does not
-// depend on how many lanes share the launch or on the grid: results are
-// deterministic run to run and lane-independent bit for bit.  x is gathered
-// through the read-only path (__ldg).  Blocks are numbered lane-fastest
-// (blockIdx.x = lane), so the lanes of one row tile run back to back and a
-// panel tile shared by several lanes (same fidx) is read from HBM once and
-// from L2 after that.
+// Layout: a group of G = min(32, pow2(K)) threads owns one (lane, row) and
+// sums it as ell_row.cuh does (strided partial sums, fixed xor butterfly).
+// The sum order depends on K alone, so a lane's output does not depend on
+// how many lanes share the launch or on the grid: results are deterministic
+// run to run and lane-independent bit for bit.  Blocks are numbered
+// lane-fastest (blockIdx.x = lane), so the lanes of one row tile run back
+// to back and a panel tile shared by several lanes (same fidx) is read from
+// HBM once and from L2 after that.
 //
 // What bounds it on an H100: bytes.  Each (row, slot) moves 8 bytes of
 // panel (int32 col + f32 val) for 2 flops, far below the card's
@@ -25,6 +23,8 @@
 // distinct panel once) plus x and Y, over 3.35 TB/s.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ell_row.cuh"
 
 namespace {
 
@@ -42,17 +42,13 @@ __global__ void __launch_bounds__(kThreads) ell_spmv_fleet_kernel(
   const float* xl = x + static_cast<int64_t>(lane) * n;
   for (int tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
     const int i = tile * rows_per_block + r_local;
-    float acc = 0.0f;
+    float acc[1] = {0.0f};
     if (i < R) {
       const int64_t base = (f * R + i) * static_cast<int64_t>(K);
-      for (int k = g; k < K; k += G) {
-        const float prod = __fmul_rn(vals[base + k], __ldg(xl + cols[base + k]));
-        acc = __fadd_rn(acc, prod);
-      }
+      ell::row_partial<1>(cols + base, vals + base, xl, 1, K, g, G, 1, acc);
     }
-    for (int off = G >> 1; off > 0; off >>= 1)
-      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off, G));
-    if (i < R && g == 0) y[static_cast<int64_t>(lane) * R + i] = acc;
+    const float sum = ell::group_sum(acc[0], G);
+    if (i < R && g == 0) y[static_cast<int64_t>(lane) * R + i] = sum;
   }
 }
 
@@ -65,8 +61,7 @@ extern "C" int ell_spmv_fleet_launch(const int* cols, const float* vals,
                                      float* y, int L, int R, int K, int n,
                                      void* stream) {
   if (L == 0 || R == 0) return 0;
-  int G = 1;
-  while (G < K && G < 32) G <<= 1;
+  const int G = ell::group_width(K);
   const int rows_per_block = kThreads / G;
   const int tiles = (R + rows_per_block - 1) / rows_per_block;
   dim3 grid(L, tiles < 65535 ? tiles : 65535);

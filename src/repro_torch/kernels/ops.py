@@ -1,15 +1,20 @@
 """Public wrappers around the kernels: width padding for the elimination
-kernel and the level-masked triangular solve built on the fleet SpMV.
+kernel, layout conversion, and the triangular solves built on the SpMV
+kernels — level-masked over row-indexed panels (``trisolve_masked``,
+``trisolve_fleet``) and level by level over level-sorted slabs
+(``trisolve_panels``, ``trisolve_levels``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.column_math import INVALID_ID, ColumnElim
 from . import sample_clique as _sc
 from . import spmv as _spmv
+from .spmv import ell_spmv, ell_spmv_multi
 
 
 def _next_pow2(x: int) -> int:
@@ -60,3 +65,114 @@ def trisolve_fleet(cols, vals, fidx, level_of, y, *, n_levels: int,
         contrib = ell_spmv_fleet(cols, vals, fidx, y)
         y = torch.where(level_of == lv, y - contrib, y)
     return y
+
+
+def graph_to_ell(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
+                 n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Laplacian rows in ELL layout (diagonal + negated off-diagonals)."""
+    deg = np.zeros(n, np.int64)
+    np.add.at(deg, src, 1)
+    np.add.at(deg, dst, 1)
+    K = int(deg.max()) + 1                       # +1 for the diagonal
+    cols = np.zeros((n, K), np.int32)
+    vals = np.zeros((n, K), np.float32)
+    fill = np.ones(n, np.int64)                  # slot 0 = diagonal
+    cols[:, 0] = np.arange(n)
+    for s, d, ww in zip(src, dst, w):
+        vals[s, 0] += ww
+        vals[d, 0] += ww
+        cols[s, fill[s]] = d
+        vals[s, fill[s]] = -ww
+        fill[s] += 1
+        cols[d, fill[d]] = s
+        vals[d, fill[d]] = -ww
+        fill[d] += 1
+    return cols, vals
+
+
+def schedule_to_ell(sched) -> Tuple[np.ndarray, ...]:
+    """Pad a host ``trisolve.LevelSchedule`` into per-level ELL rows.
+
+    Returns (row_ids, cols, vals, level_ptr) with rows grouped by level;
+    each row padded to the level's max in-degree (a stable sort + rank
+    scatter per level, no per-edge loop)."""
+    rows_all, cols_all, vals_all, ptr = [], [], [], [0]
+    for lv in range(sched.n_levels):
+        lo, hi = int(sched.level_ptr[lv]), int(sched.level_ptr[lv + 1])
+        if hi == lo:
+            ptr.append(ptr[-1])
+            continue
+        dst = sched.e_dst[lo:hi]
+        uniq, inv = np.unique(dst, return_inverse=True)
+        counts = np.bincount(inv)
+        K = int(counts.max())
+        order = np.argsort(inv, kind="stable")
+        starts = np.zeros(uniq.size + 1, np.int64)
+        np.cumsum(counts, out=starts[1:])
+        rank = np.arange(hi - lo) - np.repeat(starts[:-1], counts)
+        cols = np.zeros((uniq.size, K), np.int32)
+        vals = np.zeros((uniq.size, K), np.float32)
+        cols[inv[order], rank] = sched.e_src[lo:hi][order]
+        vals[inv[order], rank] = sched.e_val[lo:hi][order]
+        rows_all.append(uniq.astype(np.int32))
+        cols_all.append(cols)
+        vals_all.append(vals)
+        ptr.append(ptr[-1] + uniq.size)
+    return rows_all, cols_all, vals_all, np.asarray(ptr)
+
+
+def _working_copy(b: torch.Tensor, flip: bool) -> torch.Tensor:
+    """A contiguous copy of ``b`` (reversed along axis 0 when ``flip``)
+    that a level loop may update in place."""
+    if flip:
+        return torch.flip(b, (0,)).contiguous()
+    return b.clone(memory_format=torch.contiguous_format)
+
+
+def trisolve_levels(level_rows, level_cols, level_vals, b: torch.Tensor,
+                    flip: bool = False) -> torch.Tensor:
+    """Level-scheduled unit-triangular solve over the numpy slabs of
+    :func:`schedule_to_ell`, one ``ell_spmv`` per level, on ``b``'s
+    device."""
+    y = _working_copy(b, flip)
+    dev = y.device
+    for rows, cols, vals in zip(level_rows, level_cols, level_vals):
+        rows = torch.as_tensor(rows, device=dev).long()
+        contrib = ell_spmv(torch.as_tensor(cols, device=dev),
+                           torch.as_tensor(vals, device=dev), y)
+        y[rows] -= contrib
+    return torch.flip(y, (0,)) if flip else y
+
+
+def trisolve_masked(cols, vals, level_of, y, *, n_levels: int
+                    ) -> torch.Tensor:
+    """Level-masked unit-triangular solve over row-indexed ELL panels
+    ``(n, K)`` (row ``i``'s in-edges in row ``i``), ``level_of`` the
+    dependency level per row and ``y`` the rhs ``(n,)``.  Each level runs
+    the full-row ``ell_spmv`` and commits only the rows at that level, so
+    an over-padded ``n_levels`` does not change the result."""
+    for lv in range(1, n_levels):
+        contrib = ell_spmv(cols, vals, y)
+        y = torch.where(level_of == lv, y - contrib, y)
+    return y
+
+
+def trisolve_panels(sched, b: torch.Tensor, flip: bool = False
+                    ) -> torch.Tensor:
+    """Unit-triangular solve over a ``trisolve.DeviceSchedule``'s
+    level-sorted ELL panels: level ``lv``'s rows are the slab
+    ``row_ptr[lv]:row_ptr[lv+1]`` of ``cols``/``vals``, read in place by
+    the SpMV kernel (``ell_spmv`` for ``b`` of shape ``(n,)``,
+    ``ell_spmv_multi`` for ``(n, B)``).  Level 0 and empty levels are
+    skipped; rows are unique within a level, so the update is
+    deterministic.  ``b`` is not modified."""
+    y = _working_copy(b, flip)
+    kernel = ell_spmv if y.dim() == 1 else ell_spmv_multi
+    ptr = sched.row_ptr
+    for lv in range(1, sched.n_levels):   # level-0 rows have no in-edges
+        lo, hi = int(ptr[lv]), int(ptr[lv + 1])
+        if hi == lo:
+            continue
+        rows = sched.row_ids[lo:hi]
+        y[rows] -= kernel(sched.cols[lo:hi], sched.vals[lo:hi], y)
+    return torch.flip(y, (0,)) if flip else y

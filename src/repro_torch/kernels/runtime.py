@@ -17,8 +17,9 @@ with ``ctypes`` (plain C entry points, no PyTorch headers, so a build
 takes seconds).  ``--fmad=false`` keeps nvcc from contracting a
 multiply-add into one rounding anywhere the kernel does not ask for it
 explicitly — the elimination kernel must be bit-identical to its plain
-version.  Library names carry a hash of the source, so an edited kernel
-is rebuilt and a stale one is never loaded.
+version.  Library names carry a hash of the source and of the shared
+headers (``csrc/*.cuh``), so an edited kernel is rebuilt and a stale one
+is never loaded.
 """
 from __future__ import annotations
 
@@ -81,7 +82,10 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are hashed too: an edited header rebuilds every
+    # kernel that may include it
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
