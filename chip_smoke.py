@@ -49,7 +49,8 @@ to a plain version while a GPU is present):
            forward slab for ell_spmv and ell_spmv_multi), beside the least
            time the card could take (bytes over 3.35 TB/s, or fp32
            operations over 67 TFLOP/s, whichever is larger); and one
-           preconditioner apply of each path on the same factor.
+           preconditioner apply of each path on the same factor, with its
+           device busy time from a torch.profiler trace of one apply.
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -491,8 +492,10 @@ def slab_rows_timing(dev, slabs, lib):
         ms = time_ms(kern)
         plain_ms = time_ms(plain, reps=3)
         lib_ms = time_ms(lib_call)
-        # nonzero slots read once for all columns, x read and y written once
-        nbytes = nnz * 8 + n * B * 4 + R * B * 4
+        # nonzero slots read once for all columns, the x rows they gather
+        # read once, y written once
+        x_bytes = gathered_bytes(c, v, B)
+        nbytes = nnz * 8 + x_bytes + R * B * 4
         rows.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
             replaces="src/repro/kernels/spmv.py:"
@@ -500,7 +503,8 @@ def slab_rows_timing(dev, slabs, lib):
             launches=lib["launches"].get(name, 0),
             max_abs_err=slabs["worst"][name], ms=ms, plain_ms=plain_ms,
             **bound(nbytes, 2 * B * nnz), library_ms=lib_ms,
-            shape=f"R={R} K={K} B={B} nnz={nnz} padded_bytes={R * K * 8}"))
+            shape=f"R={R} K={K} B={B} nnz={nnz} x_bytes={x_bytes} "
+                  f"padded_bytes={R * K * 8}"))
     log_rows(rows)
     return rows
 
@@ -528,10 +532,42 @@ def apply_timing(dev, main, slabs):
         runtime.reset_launches()
         fn()
         torch.cuda.synchronize()
-        out[tag] = ms
+        launches = dict(runtime.LAUNCHES)
+        busy, n_dev = device_busy_ms(fn)
+        out[tag] = dict(ms=ms, busy_ms=busy)
+        idle = ("device time not measured (the trace holds no device event)"
+                if busy is None else
+                f"device busy {busy:.2f} ms in {n_dev} device events, idle "
+                f"share {1 - busy / ms:.3f} of the unprofiled mean")
         log(f"[timing] preconditioner apply, {tag}: {ms:.2f} ms, launches "
-            f"{dict(runtime.LAUNCHES)}")
+            f"{launches}; {idle}")
     return out
+
+
+def device_busy_ms(fn):
+    """(busy ms, events) of one call of ``fn`` on the card: the union of
+    the time spans of the device events (kernels, copies, fills) in a
+    torch.profiler trace of the call; (None, 0) when the trace holds none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None, 0
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return (busy + hi - lo) / 1e3, len(spans)
 
 
 def phase_timing(dev, main, spmv_err):
@@ -601,9 +637,11 @@ def phase_timing(dev, main, spmv_err):
                            f"({lib_rel:.2e})")
     lib_ms = time_ms(lambda: torch.sparse.mm(csr, XT))
     # a sparse product: the bound counts the panel's nonzero slots (index
-    # and value read once for all lanes), not its padding
+    # and value read once for all lanes), not its padding, and the x
+    # entries they gather in each lane
     nnz = int((v != 0).sum())
-    nbytes = nnz * 8 + L * n_pad * 4 + L * 4 + L * n_pad * 4
+    x_bytes = L * gathered_bytes(c, v, 1)
+    nbytes = nnz * 8 + x_bytes + L * 4 + L * n_pad * 4
     ops = 2 * L * nnz
     rows.append(dict(
         name="ell_spmv_fleet", route="cuda",
@@ -612,7 +650,7 @@ def phase_timing(dev, main, spmv_err):
         launches=main["launches"].get("ell_spmv_fleet", 0),
         max_abs_err=spmv_err, ms=ms, plain_ms=plain_ms,
         **bound(nbytes, ops), library_ms=lib_ms,
-        shape=f"L={L} R={n_pad} K={K} nnz={nnz}"))
+        shape=f"L={L} R={n_pad} K={K} nnz={nnz} x_bytes={x_bytes}"))
     log_rows(rows)
     return rows
 
@@ -623,6 +661,18 @@ def log_rows(rows) -> None:
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"launches {r['launches']}")
+
+
+def gathered_bytes(cols, vals, B: int) -> int:
+    """Bytes of x ``[n, B]`` (float32, row-major) that a sparse product
+    must read: the distinct rows its nonzero slots gather, in whole 32-byte
+    sectors (B is 1, 2, 4 or a multiple of 8, so no row straddles two)."""
+    import torch
+    used = torch.unique(cols[vals != 0].long())
+    row = 4 * B
+    if row >= 32:
+        return used.numel() * -(-row // 32) * 32
+    return torch.unique(used * row // 32).numel() * 32
 
 
 def bound(nbytes: float, ops: float) -> dict:

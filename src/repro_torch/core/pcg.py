@@ -119,10 +119,22 @@ def fleet_matvec(fa: FleetArrays, fidx: torch.Tensor,
     edge-list scatter-add's terms in its order; elementwise only, so the
     result is deterministic and a lane's does not depend on the batch)."""
     f = fidx.long()
-    nbr, w = fa.lnbr[f], fa.lw[f]
-    out = torch.zeros_like(Y)
-    for k in range(nbr.shape[2]):
-        out = out + w[:, :, k] * (Y - torch.gather(Y, 1, nbr[:, :, k].long()))
+    return adjacency_matvec(fa.lnbr[f], fa.lw[f], Y)
+
+
+def adjacency_matvec(nbr: torch.Tensor, w: torch.Tensor,
+                     X: torch.Tensor) -> torch.Tensor:
+    """Laplacian matvec over the last axis of ``X`` from adjacency rows
+    (``core.laplacian.laplacian_adjacency``):
+    ``Σ_k w[..., k]·(X − X[nbr[..., k]])`` left to right — the edge-list
+    scatter-add's terms in its order, elementwise only, so deterministic
+    on CUDA and the same for a row alone or in a block.  ``nbr``/``w`` are
+    ``(n, K)``, shared by every row of ``X`` (``(n,)`` or ``(nrhs, n)``),
+    or ``(L, n, K)``, one table per row of ``X`` ``(L, n)``."""
+    out = torch.zeros_like(X)
+    for k in range(nbr.shape[-1]):
+        far = torch.gather(X, -1, nbr[..., k].long().expand_as(X))
+        out = out + w[..., k] * (X - far)
     return out
 
 
@@ -399,20 +411,6 @@ def pcg_np(matvec: Callable, precond: Callable, b: np.ndarray, *,
         relres = np.linalg.norm(r) / bnorm
     return PCGResult(x=x, iters=np.int32(it), relres=np.float64(relres),
                      converged=relres <= tol)
-
-
-def adjacency_matvec(nbr: torch.Tensor, w: torch.Tensor,
-                     X: torch.Tensor) -> torch.Tensor:
-    """Laplacian matvec over the last axis of ``X`` (``(n,)`` or
-    ``(nrhs, n)``) from adjacency rows (``core.laplacian.
-    laplacian_adjacency``): ``Σ_k w[:, k]·(X − X[..., nbr[:, k]])`` left to
-    right — the edge-list scatter-add's terms in its order, elementwise
-    only, so deterministic on CUDA and the same for a column alone or in
-    a block."""
-    out = torch.zeros_like(X)
-    for k in range(nbr.shape[1]):
-        out = out + w[:, k] * (X - X[..., nbr[:, k]])
-    return out
 
 
 def _laplacian_operator(g: Graph, like: torch.Tensor) -> Callable:

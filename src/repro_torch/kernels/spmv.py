@@ -42,13 +42,12 @@ def ell_spmv_plain(cols, vals, x) -> torch.Tensor:
     exact, so only the final sum is rounded (twice, 53 then 24 bits, which
     differs from one rounding only at exact ties of the second).  A column
     of a block is summed exactly as that column alone."""
-    shape = (-1,) + (1,) * (x.dim() - 1)
-    acc = torch.zeros((cols.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+    shape = tuple(vals.shape) + (1,) * (x.dim() - 1)
+    prod = vals.double().reshape(shape) * x[cols.long()].double()
+    acc = torch.zeros(prod.shape[:1] + prod.shape[2:], dtype=x.dtype,
                       device=x.device)
     for k in range(cols.shape[1]):
-        term = (vals[:, k].double().reshape(shape)
-                * x[cols[:, k].long()].double())
-        acc = (acc.double() + term).to(x.dtype)
+        acc = (acc.double() + prod[:, k]).to(x.dtype)
     return acc
 
 
