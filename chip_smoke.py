@@ -43,17 +43,36 @@ to a plain version while a GPU is present):
            error <= 1e-5; ell_spmv bitwise equal to ell_spmv_fleet's lane
            on the same slab, and each ell_spmv_multi column bitwise equal to
            ell_spmv of that column.
+  attention the flash_attention path through its entry point, launch
+           counts reset just before and read just after, at the attention
+           shapes of two configured models in the dtype they serve in —
+           qwen3-14b prefill (B=1, 40 q heads over 8 kv heads expanded x5,
+           S=4096, d=128, bf16, causal) and a recurrentgemma-2b local layer
+           (B=1, 10 heads over 1 kv head expanded, S=2048 = its window,
+           d=256, bf16, causal) — and at one float32 non-causal shape (B=1,
+           H=40, S=2048, d=128).  Each result must be finite and agree with
+           flash_attention_plain on the same inputs: float32 max |diff| <=
+           2e-5 max|plain| + 1e-6, bf16 within one bf16 rounding (2**-7 of
+           the larger value, + 1e-6); the kernel must have launched.
   timing   each kernel, its plain version and (where one exists) one
            PyTorch library call for the same function, timed with CUDA
            events at the main path's shapes (the library path's largest
-           forward slab for ell_spmv and ell_spmv_multi), beside the least
-           time the card could take (bytes over 3.35 TB/s, or fp32
-           operations over 67 TFLOP/s, whichever is larger); and one
+           forward slab for ell_spmv and ell_spmv_multi, the two bf16
+           model shapes for flash_attention, whose library call is
+           scaled_dot_product_attention), beside the least time the card
+           could take (bytes over 3.35 TB/s, or operations over the peak
+           rate, whichever is larger: fp32's 67 TFLOP/s for the solver's
+           kernels, the bf16 tensor cores' 989 TFLOP/s for attention, with
+           the fp32 figure printed beside it); each kernel's device time
+           per launch, from a torch.profiler trace of 20 back-to-back
+           launches, beside its CUDA-event mean (which also holds the
+           wrapper's host work when that outlasts the kernel); and one
            preconditioner apply of each path on the same factor, with its
            device busy time from a torch.profiler trace of one apply.
 
-The last three lines are the kernel table as JSON, the card's name and
-power limit, and {"ok": true, "device": {...}}.
+The last three lines are the kernel table as JSON (one row per kernel,
+two for flash_attention: the qwen3-14b shape, then the recurrentgemma-2b
+one), the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -69,6 +88,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32, outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+# the keys of a row of the kernel table
+ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def log(msg: str) -> None:
@@ -116,7 +139,8 @@ def permuted(g):
     return g.permute(perm).coalesce()
 
 
-KERNELS = ("sample_clique", "ell_spmv_fleet", "ell_spmv", "ell_spmv_multi")
+KERNELS = ("sample_clique", "ell_spmv_fleet", "ell_spmv", "ell_spmv_multi",
+           "flash_attention")
 
 
 def phase_build(runtime):
@@ -455,6 +479,130 @@ def phase_slabs(dev, lib):
     return dict(fwd=fwd, bwd=bwd, worst=worst)
 
 
+# (tag, B, q heads, kv heads, S, d, dtype, causal) of the [attention] phase;
+# the first two are the model shapes the timing rows use
+ATTENTION_SHAPES = (
+    ("qwen3-14b prefill", 1, 40, 8, 4096, 128, "bfloat16", True),
+    ("recurrentgemma-2b local", 1, 10, 1, 2048, 256, "bfloat16", True),
+    ("float32 non-causal", 1, 40, 40, 2048, 128, "float32", False),
+)
+
+
+def attention_inputs(dev, shape, seed: int):
+    """q ``[B, H, S, d]`` and k, v made for ``kv heads`` and expanded to H
+    (each kv head serves H / kv consecutive q heads), from ``seed``."""
+    import torch
+    _, B, H, Hkv, S, d, dtype, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, H, S, d), generator=gen, device=dev).to(dt)
+    k, v = (torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(dt)
+            .repeat_interleave(H // Hkv, dim=1) for _ in range(2))
+    return q, k, v
+
+
+def within_tolerance(got, want):
+    """(ok, max |diff|): float32 max |diff| <= 2e-5 max|want| + 1e-6;
+    bf16 |diff| <= 2**-7 max(|got|, |want|) + 1e-6 elementwise, one bf16
+    rounding of two float32 results that differ in their last bits."""
+    import torch
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = float(diff.max())
+    if got.dtype == torch.float32:
+        return err <= 2e-5 * float(w.abs().max()) + 1e-6, err
+    tol = 2 ** -7 * torch.maximum(g.abs(), w.abs()) + 1e-6
+    return bool((diff <= tol).all()), err
+
+
+def phase_attention(dev):
+    """The flash_attention path: its entry point at the model shapes,
+    launch counts reset just before and read just after, each result held
+    against the plain version on the same inputs."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import runtime
+    inputs = [attention_inputs(dev, shape, seed)
+              for seed, shape in enumerate(ATTENTION_SHAPES)]
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    t0 = time.time()
+    outs = [fa.flash_attention(q, k, v, causal=shape[7])
+            for shape, (q, k, v) in zip(ATTENTION_SHAPES, inputs)]
+    torch.cuda.synchronize()
+    t_path = time.time() - t0
+    launches = dict(runtime.LAUNCHES)
+    errs = []
+    for shape, (q, k, v), o in zip(ATTENTION_SHAPES, inputs, outs):
+        tag, B, H, Hkv, S, d, dtype, causal = shape
+        check(o.shape == q.shape and o.dtype == q.dtype
+              and bool(torch.isfinite(o.float()).all()),
+              f"flash_attention {tag}: non-finite or misshapen output")
+        p = fa.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ok, err = within_tolerance(o, p)
+        rel = err / max(float(p.float().abs().max()), 1e-30)
+        log(f"[attention] {tag} B={B} H={H} (kv heads {Hkv}) S={S} d={d} "
+            f"{dtype} causal={causal}: max abs err {err:.3e} (relative "
+            f"{rel:.2e}) vs flash_attention_plain")
+        check(ok, f"flash_attention {tag}: kernel differs from the plain "
+                  f"version beyond the tolerance (max abs err {err:.3e})")
+        errs.append(err)
+    log(f"[attention] {len(outs)} calls in {t_path:.2f}s; launches: "
+        f"{launches}")
+    check(launches.get("flash_attention", 0) == len(outs),
+          "the attention path did not launch the flash_attention kernel "
+          "once per call")
+    return dict(inputs=inputs, errs=errs, launches=launches)
+
+
+def attention_timing(dev, attn):
+    """Timing rows of flash_attention at the two bf16 model shapes, with
+    scaled_dot_product_attention on the same tensors as the library call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    rows = []
+    for shape, (q, k, v), err in zip(ATTENTION_SHAPES[:2], attn["inputs"],
+                                     attn["errs"]):
+        tag, B, H, Hkv, S, d, dtype, causal = shape
+        kern = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa: E731
+        plain = lambda: fa.flash_attention_plain(                  # noqa: E731
+            q, k, v, causal=causal)
+        lib_call = lambda: F.scaled_dot_product_attention(         # noqa: E731
+            q, k, v, is_causal=causal)
+        # the yardstick computes the same function: within 2**-5 of the
+        # largest output (it rounds its probabilities to bf16)
+        o_k, o_l = kern(), lib_call()
+        torch.cuda.synchronize()
+        lib_err = float((o_k.float() - o_l.float()).abs().max())
+        check(lib_err <= 2 ** -5 * float(o_k.float().abs().max()),
+              f"scaled_dot_product_attention disagrees with flash_attention "
+              f"at {tag} (max abs diff {lib_err:.3e})")
+        ms = time_ms(kern)
+        device_ms = device_ms_per_launch(kern)
+        plain_ms = time_ms(plain, reps=3)
+        lib_ms = time_ms(lib_call)
+        # q, k, v read once and o written once; 4 d flops per (row, kept
+        # column): two products of 2 d flops each
+        kept = S * (S + 1) // 2 if causal else S * S
+        ops = 4 * B * H * d * kept
+        nbytes = 4 * B * H * S * d * q.element_size()
+        rows.append(dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:81",
+            launches=attn["launches"].get("flash_attention", 0),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **bound(nbytes, ops, BF16_TC_OPS_PER_S), library_ms=lib_ms,
+            bound_fp32_ms=bound(nbytes, ops)["bound_ms"], device_ms=device_ms,
+            shape=f"{tag} B={B} H={H} S={S} d={d} {dtype} causal={causal} "
+                  f"flops={ops:.4e} bytes={nbytes} sdpa_max_abs_diff="
+                  f"{lib_err:.3e}"))
+    log_rows(rows)
+    return rows
+
+
 def slab_rows_timing(dev, slabs, lib):
     """Timing rows of ell_spmv and ell_spmv_multi (8 columns) at the
     library path's largest forward slab."""
@@ -490,6 +638,7 @@ def slab_rows_timing(dev, slabs, lib):
         check(lib_rel <= 1e-4, f"torch.sparse.mm disagrees with {name} "
                                f"({lib_rel:.2e})")
         ms = time_ms(kern)
+        device_ms = device_ms_per_launch(kern)
         plain_ms = time_ms(plain, reps=3)
         lib_ms = time_ms(lib_call)
         # nonzero slots read once for all columns, the x rows they gather
@@ -504,7 +653,7 @@ def slab_rows_timing(dev, slabs, lib):
             max_abs_err=slabs["worst"][name], ms=ms, plain_ms=plain_ms,
             **bound(nbytes, 2 * B * nnz), library_ms=lib_ms,
             shape=f"R={R} K={K} B={B} nnz={nnz} x_bytes={x_bytes} "
-                  f"padded_bytes={R * K * 8}"))
+                  f"padded_bytes={R * K * 8}", device_ms=device_ms))
     log_rows(rows)
     return rows
 
@@ -542,6 +691,16 @@ def apply_timing(dev, main, slabs):
         log(f"[timing] preconditioner apply, {tag}: {ms:.2f} ms, launches "
             f"{launches}; {idle}")
     return out
+
+
+def device_ms_per_launch(fn, n: int = 20):
+    """Device time of one call of ``fn`` (one kernel launch): the busy
+    time of ``n`` back-to-back calls in one trace over ``n``, so the host's
+    work between launches is not counted; None when the trace holds no
+    device event."""
+    fn()
+    busy, _ = device_busy_ms(lambda: [fn() for _ in range(n)])
+    return None if busy is None else busy / n
 
 
 def device_busy_ms(fn):
@@ -595,6 +754,8 @@ def phase_timing(dev, main, spmv_err):
     err = clique_rows(ids, ws, fill, u)
     R, W = ids.shape
     ms = time_ms(lambda: sc.sample_clique(ids, ws, fill, u))
+    device_ms = device_ms_per_launch(lambda: sc.sample_clique(ids, ws, fill,
+                                                              u))
     plain_ms = time_ms(lambda: sc.sample_clique_plain(ids, ws, fill, u),
                        reps=5)
     nbytes = R * W * (4 + 4 + 4) + R * 4 + R * W * (5 * 4 + 1) + R * 8
@@ -607,7 +768,8 @@ def phase_timing(dev, main, spmv_err):
         replaces="src/repro/kernels/sample_clique.py:218",
         launches=main["launches"].get("sample_clique", 0),
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        **bound(nbytes, ops), library_ms=None, shape=f"R={R} W={W}"))
+        **bound(nbytes, ops), library_ms=None, shape=f"R={R} W={W}",
+        device_ms=device_ms))
 
     # ell_spmv_fleet at the main path's shapes: the 8-lane forward sweep
     fa = h.fleet.arrays
@@ -617,6 +779,8 @@ def phase_timing(dev, main, spmv_err):
     X = torch.randn((L, n_pad), device=dev)
     fidx = torch.full((L,), h.fleet_row, dtype=torch.int32, device=dev)
     ms = time_ms(lambda: spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X))
+    device_ms = device_ms_per_launch(
+        lambda: spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X))
     plain_ms = time_ms(lambda: spmv.ell_spmv_fleet_plain(
         fa.fcols, fa.fvals, fidx, X), reps=3)
     # the library yardstick: the same matrix in CSR, torch.sparse.mm
@@ -650,17 +814,21 @@ def phase_timing(dev, main, spmv_err):
         launches=main["launches"].get("ell_spmv_fleet", 0),
         max_abs_err=spmv_err, ms=ms, plain_ms=plain_ms,
         **bound(nbytes, ops), library_ms=lib_ms,
-        shape=f"L={L} R={n_pad} K={K} nnz={nnz} x_bytes={x_bytes}"))
+        shape=f"L={L} R={n_pad} K={K} nnz={nnz} x_bytes={x_bytes}",
+        device_ms=device_ms))
     log_rows(rows)
     return rows
 
 
 def log_rows(rows) -> None:
     for r in rows:
-        log(f"[timing] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"launches {r['launches']}")
+        fp32 = ("" if "bound_fp32_ms" not in r else
+                f", fp32 bound {r['bound_fp32_ms']:.4f} ms")
+        log(f"[timing] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms "
+            f"(device time {r['device_ms']} ms per launch), plain "
+            f"{r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}){fp32}, launches {r['launches']}")
 
 
 def gathered_bytes(cols, vals, B: int) -> int:
@@ -675,9 +843,10 @@ def gathered_bytes(cols, vals, B: int) -> int:
     return torch.unique(used * row // 32).numel() * 32
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -708,12 +877,14 @@ def main() -> None:
     spmv_err = phase_spmv(dev, main_res["handle"])
     lib_res = phase_library(dev, main_res)
     slabs = phase_slabs(dev, lib_res)
+    attn = phase_attention(dev)
     kernels = phase_timing(dev, main_res, spmv_err)
     kernels += slab_rows_timing(dev, slabs, lib_res)
+    kernels += attention_timing(dev, attn)
     apply_timing(dev, main_res, slabs)
     log(f"[done] all phases passed in {time.time() - t_start:.1f}s on {card}")
-    print(json.dumps({"kernels": [{k: v for k, v in r.items()
-                                   if k != "shape"} for r in kernels]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in ROW_KEYS}
+                                  for r in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

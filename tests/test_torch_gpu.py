@@ -8,6 +8,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as fa          # noqa: E402
 from repro_torch.kernels import runtime                        # noqa: E402
 from repro_torch.kernels import sample_clique as sc            # noqa: E402
 from repro_torch.kernels import spmv                           # noqa: E402
@@ -169,3 +170,51 @@ def test_spmv_wrappers_reject_bad_input(dev):
         spmv.ell_spmv(c, v[:, :2].contiguous(), torch.zeros(5, device=dev))
     with pytest.raises(ValueError):
         spmv.ell_spmv_multi(c, v, torch.zeros(5, device=dev))
+
+
+def _within_one_rounding(got, want, dtype):
+    """float32: max |diff| <= 2e-5 max|want| + 1e-6 (the kernel sums in
+    another order than the plain version's tiles and matmuls).  bfloat16:
+    both round a float32 result once, so they may differ by one bf16 step,
+    2**-7 of the larger value."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if dtype == torch.float32:
+        return float(diff.max()) <= 2e-5 * float(want.abs().max()) + 1e-6
+    bound = 2 ** -7 * torch.maximum(got.abs(), want.abs()) + 1e-6
+    return bool((diff <= bound).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_attention_kernel(dev, d, causal, dtype):
+    """Kernel vs plain on the card; S = 200 is not a multiple of the
+    kernel's 64-row tiles, so its ragged last q and kv tiles are masked."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = (torch.randn((2, 3, 200, d), generator=gen, device=dev
+                           ).to(dtype) for _ in range(3))
+    before = runtime.LAUNCHES.get("flash_attention", 0)
+    o = fa.flash_attention(q, k, v, causal=causal, q_tile=40, block_k=40)
+    assert runtime.LAUNCHES["flash_attention"] == before + 1
+    p = fa.flash_attention_plain(q, k, v, causal=causal, block_k=40)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape
+    assert bool(torch.isfinite(o.float()).all())
+    assert _within_one_rounding(o, p, dtype)
+
+
+def test_flash_attention_rejects_bad_input(dev):
+    q = torch.zeros((1, 2, 64, 48), device=dev)
+    with pytest.raises(ValueError):                      # head dim 48
+        fa.flash_attention(q, q, q, q_tile=64, block_k=64)
+    q = torch.zeros((1, 2, 64, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q, q, q_tile=64, block_k=64)
+    q = torch.zeros((1, 64, 2, 64), device=dev).transpose(1, 2)
+    with pytest.raises(ValueError):                      # not contiguous
+        fa.flash_attention(q, q, q, q_tile=64, block_k=64)
+    q = torch.zeros((1, 2, 64, 64), device=dev)
+    with pytest.raises(TypeError):                       # k in another dtype
+        fa.flash_attention(q, q.to(torch.bfloat16), q, q_tile=64,
+                           block_k=64)
