@@ -21,12 +21,23 @@ to a plain version while a GPU is present):
            grid3d(64,64,64,'uniform',seed=2) (nnz-sort, chunk 256,
            fill_slack 32, strict), then solves of 1 and 8 right-hand sides
            (tol 1e-6, maxiter 500).  Every lane must converge, its true
-           residual (float64 edge-list matvec on the host) must agree, and
-           both kernels must have launched.
+           residual (float64 edge-list matvec on the host) must agree,
+           sample_clique and the level sweep ell_sweep_fleet must have
+           launched and the full-row ell_spmv_fleet must not.  Then one
+           1-lane and one 8-lane preconditioner apply of the handle's
+           factor against the full-row composition the sweeps replaced
+           (ell_spmv_fleet over the whole panel, then where(level == lv),
+           each row's level from the factor's packed schedules built anew)
+           on the same input: bitwise equal, both times printed.  The
+           full-row kernel's launches over these two applies are its
+           comparison_launches in the kernel table; its launches there
+           are the main path's, 0.
   spmv     ell_spmv_fleet kernel vs its plain version at the main path's
            shapes (its forward panels, 1 and 8 lanes): relative error
            <= 1e-5, and a lane alone bitwise equal to the same lane inside
-           the 8-lane batch.
+           the 8-lane batch.  ell_sweep_fleet vs its plain version at the
+           largest and at an average forward level (8 lanes): relative
+           error <= 1e-5.
   library  the library path through the user entry points, launch counts
            reset just before and read just after: factorize_wavefront of
            the main path's graph with its settings and key (bit-identical to
@@ -52,14 +63,22 @@ to a plain version while a GPU is present):
            d=256, bf16, causal) — and at one float32 non-causal shape (B=1,
            H=40, S=2048, d=128).  Each result must be finite and agree with
            flash_attention_plain on the same inputs: float32 max |diff| <=
-           2e-5 max|plain| + 1e-6, bf16 within one bf16 rounding (2**-7 of
-           the larger value, + 1e-6); the kernel must have launched.
+           2e-5 max|plain| + 1e-6, bf16 within the bound derived from the
+           kernel's rounding of P to bf16 (within_tolerance); the kernel
+           must have launched.  scaled_dot_product_attention's distance
+           from the plain version is printed beside the kernel's.  A bf16
+           result must also agree with the float64 reference of the
+           kernel's own numerics (flash_attention_bf16_reference, P
+           rounded to bf16) within its output rounding plus the slack of
+           its fp32 steps (within_reference), elementwise.
   timing   each kernel, its plain version and (where one exists) one
            PyTorch library call for the same function, timed with CUDA
            events at the main path's shapes (the library path's largest
            forward slab for ell_spmv and ell_spmv_multi, the two bf16
            model shapes for flash_attention, whose library call is
-           scaled_dot_product_attention), beside the least time the card
+           scaled_dot_product_attention; ell_sweep_fleet at the main
+           factor's largest and at an average forward level, 8 lanes),
+           beside the least time the card
            could take (bytes over 3.35 TB/s, or operations over the peak
            rate, whichever is larger: fp32's 67 TFLOP/s for the solver's
            kernels, the bf16 tensor cores' 989 TFLOP/s for attention, with
@@ -70,14 +89,20 @@ to a plain version while a GPU is present):
            preconditioner apply of each path on the same factor, with its
            device busy time from a torch.profiler trace of one apply.
 
+The build phase also prints the number of HGMMA (wgmma) instructions in
+the attention library's SASS, where cuobjdump exists.
+
 The last three lines are the kernel table as JSON (one row per kernel,
-two for flash_attention: the qwen3-14b shape, then the recurrentgemma-2b
-one), the card's name and power limit, and {"ok": true, "device": {...}}.
+two for ell_sweep_fleet — the largest forward level, then an average one
+— and two for flash_attention — the qwen3-14b shape, then the
+recurrentgemma-2b one), the card's name and power limit, and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -92,6 +117,9 @@ BF16_TC_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 # the keys of a row of the kernel table
 ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+# a row's optional keys: launches made only to compare a kernel with what
+# replaced it on the main path, apart from the main path's own count
+EXTRA_KEYS = ("comparison_launches",)
 
 
 def log(msg: str) -> None:
@@ -154,6 +182,17 @@ def phase_build(runtime):
                 log(f"[build] {name}: {line.strip()}")
     for name in KERNELS:
         runtime.load(name)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(cuobjdump).exists():
+        sass = subprocess.run([cuobjdump, "-sass",
+                               str(runtime._lib_path("flash_attention"))],
+                              capture_output=True, text=True, timeout=120)
+        check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
+        hgmma = sum("HGMMA" in line for line in sass.stdout.splitlines())
+        log(f"[build] flash_attention SASS: {hgmma} HGMMA instructions")
+        check(hgmma > 0, "the attention library has no HGMMA instruction")
+    else:
+        log("[build] cuobjdump not found: HGMMA count not read")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -300,12 +339,79 @@ def phase_main(dev):
         rr = true_relres(g, x, b)
         check(rr < 1e-4, f"main path: true residual {rr:.2e} of a "
                          f"converged lane")
-    for name in ("sample_clique", "ell_spmv_fleet"):
+    for name in ("sample_clique", "ell_sweep_fleet"):
         check(launches.get(name, 0) > 0,
               f"main path never launched the {name} kernel")
+    check(launches.get("ell_spmv_fleet", 0) == 0,
+          "main path launched the full-row ell_spmv_fleet kernel")
+    full_row = apply_against_full_row(dev, h)
     return dict(solver=solver, handle=h, launches=launches,
-                t_factor=t_factor, t_solve1=t_solve1, t_solve8=t_solve8,
-                graph=g, b1=b1, B8=B8, r1=r1, r8=r8)
+                full_row_launches=full_row, t_factor=t_factor,
+                t_solve1=t_solve1, t_solve8=t_solve8, graph=g, b1=b1, B8=B8,
+                r1=r1, r8=r8)
+
+
+def full_row_apply(h, levels, fidx, R):
+    """One preconditioner apply through the full-row composition that the
+    level sweeps replaced: per level ell_spmv_fleet over the whole padded
+    panel, then where(level_of == lv, y - Y, y).  ``levels`` is the
+    handle's (forward, backward) level per row."""
+    from repro_torch.kernels import ops
+    fl = h.fleet
+    fa = fl.arrays
+    f = fidx.long()
+    L = R.shape[0]
+    Y = ops.trisolve_fleet_masked(fa.fcols, fa.fvals, fidx,
+                                  levels[0].expand(L, -1), R,
+                                  n_levels=fl.f_levels,
+                                  lane_levels=fa.fnlv[f])
+    return ops.trisolve_fleet_masked(fa.bcols, fa.bvals, fidx,
+                                     levels[1].expand(L, -1),
+                                     Y * fa.dinv[f], n_levels=fl.b_levels,
+                                     lane_levels=fa.bnlv[f])
+
+
+def apply_against_full_row(dev, h):
+    """A 1-lane and an 8-lane apply of the handle's factor through the
+    level sweeps, each bitwise equal to the full-row composition on the
+    same input, with each row's level taken from the factor's packed
+    schedules built anew (the fleet keeps only the level row lists).
+    Returns the launch counts over the two full-row applies (reset just
+    before; these are comparison launches, not the main path's)."""
+    import torch
+    from repro_torch.core.pcg import fleet_precondition
+    from repro_torch.core.trisolve import build_schedules_batched
+    from repro_torch.kernels import runtime
+    fl = h.fleet
+    fwd, bwd = build_schedules_batched([h.factor.to_device(dev)])[0]
+    levels = (fwd.level_of[None], bwd.level_of[None])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    runs = []
+    for L in (1, 8):
+        R = torch.zeros((L, h.n_pad), device=dev)
+        R[:, :h.n] = torch.randn((L, h.n), generator=gen, device=dev)
+        runs.append((L, R, torch.full((L,), h.fleet_row, dtype=torch.int32,
+                                      device=dev)))
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    for L, R, fidx in runs:
+        t0 = time.time()
+        new = fleet_precondition(fl.arrays, fidx, R, f_rows=fl.f_rows,
+                                 b_rows=fl.b_rows)
+        torch.cuda.synchronize()
+        t_new = time.time() - t0
+        t0 = time.time()
+        old = full_row_apply(h, levels, fidx, R)
+        torch.cuda.synchronize()
+        t_old = time.time() - t0
+        check(bitwise_equal(new, old),
+              f"main path: the {L}-lane apply through the level sweeps "
+              f"differs from the full-row composition")
+        log(f"[main] {L}-lane apply: level sweeps {t_new * 1e3:.2f} ms == "
+            f"full-row composition {t_old * 1e3:.2f} ms, bit for bit")
+    launches = dict(runtime.LAUNCHES)
+    log(f"[main] launches over the two applies: {launches}")
+    return launches
 
 
 def phase_spmv(dev, h):
@@ -338,7 +444,46 @@ def phase_spmv(dev, h):
     check(bitwise_equal(y1[0], y8[0]), "ell_spmv_fleet: lane 0 differs")
     log("[spmv] each of 8 lanes alone == the same lane in the 8-lane batch, "
         "bit for bit")
-    return worst
+    sweep_worst = 0.0
+    for tag, lv in sweep_levels(h).items():
+        sw = sweep_call(h, lv, X)
+        Yk, Yp = X.clone(), X.clone()
+        sw(spmv.ell_sweep_fleet, Yk)
+        sw(spmv.ell_sweep_fleet_plain, Yp)
+        torch.cuda.synchronize()
+        err = float((Yk - Yp).abs().max())
+        rel = err / max(float(Yp.abs().max()), 1e-30)
+        check(rel <= 1e-5, f"ell_sweep_fleet {tag} level {lv}: relative "
+                           f"error {rel:.2e}")
+        sweep_worst = max(sweep_worst, err)
+        log(f"[spmv] ell_sweep_fleet L=8 {tag} forward level {lv}: max abs "
+            f"err {err:.3e} (relative {rel:.2e}) vs its plain version")
+    return dict(full_row=worst, sweep=sweep_worst)
+
+
+def sweep_levels(h):
+    """The handle's largest forward level and an average one (the level
+    whose row count is nearest the mean over levels 1 ..)."""
+    import numpy as np
+    start = h.fleet.arrays.fstart[h.fleet_row].cpu().numpy()
+    counts = np.diff(start[:h.n_levels_fwd + 1])[1:]
+    largest = int(np.argmax(counts)) + 1
+    average = int(np.argmin(np.abs(counts - counts.mean()))) + 1
+    return {"largest": largest, "average": average}
+
+
+def sweep_call(h, lv, Y):
+    """fn(kernel_or_plain, y): one forward level ``lv`` of the handle's
+    factor, in place on ``y`` ``[L, n_pad]`` (every lane the handle's)."""
+    import torch
+    fl = h.fleet
+    fa = fl.arrays
+    only = [0] * fl.f_levels
+    only[lv] = fl.f_rows[lv]
+    fidx = torch.full((Y.shape[0],), h.fleet_row, dtype=torch.int32,
+                      device=Y.device)
+    return lambda fn, y: fn(fa.fcols, fa.fvals, fa.flen, fa.frows, fa.fstart,
+                            fidx, y, only)
 
 
 def phase_library(dev, main):
@@ -501,18 +646,54 @@ def attention_inputs(dev, shape, seed: int):
     return q, k, v
 
 
-def within_tolerance(got, want):
-    """(ok, max |diff|): float32 max |diff| <= 2e-5 max|want| + 1e-6;
-    bf16 |diff| <= 2**-7 max(|got|, |want|) + 1e-6 elementwise, one bf16
-    rounding of two float32 results that differ in their last bits."""
+def within_tolerance(got, want, v):
+    """(ok, max |diff|) of the kernel's output ``got`` against the plain
+    version's ``want`` on the same inputs.
+
+    float32: max |diff| <= 2e-5 max|want| + 1e-6 (the same products and
+    sums in another order).
+
+    bfloat16: elementwise
+        |got - want| <= u (|got| + |want|) + (u + (S + d) 2**-24) max|v|
+    with u = 2**-8, the unit roundoff of bf16, and max|v| over the (batch,
+    head).  The kernel rounds P to bf16 before P V and keeps the row sums
+    l in fp32: each p_c moves by at most u p_c and the weights p_c / l sum
+    to 1, so the output moves by at most u max|v|.  Each side rounds its
+    fp32 output to bf16 once, at most u |o| (u (|got| + |want|) bounds
+    both, to first order).  The fp32 sums of the d-term scores and of the
+    S-term rows, taken in another order on each side, add at most
+    (S + d) 2**-24 of max|v|.  Where a row's softmax spreads over
+    thousands of keys, |o| is far below max|v| and this bound is loose:
+    within_reference holds the kernel to its own numerics as well."""
     import torch
     g, w = got.float(), want.float()
     diff = (g - w).abs()
     err = float(diff.max())
     if got.dtype == torch.float32:
         return err <= 2e-5 * float(w.abs().max()) + 1e-6, err
-    tol = 2 ** -7 * torch.maximum(g.abs(), w.abs()) + 1e-6
+    u = 2.0 ** -8
+    S, d = v.shape[-2:]
+    vmax = v.float().abs().amax(dim=(-2, -1), keepdim=True)
+    tol = u * (g.abs() + w.abs()) + (u + (S + d) * 2.0 ** -24) * vmax
     return bool((diff <= tol).all()), err
+
+
+def within_reference(got, q, k, v, causal):
+    """(ok, max |diff|, largest |diff| / bound) of the bf16 kernel's output
+    against the float64 reference of its own numerics
+    (flash_attention_bf16_reference: P rounded to bf16 as the kernel
+    rounds it), elementwise |got - o| <= 2**-8 |got| + slack: the output's
+    rounding to bf16 plus the slack that the reference derives from the
+    kernel's fp32 steps (score sums, ex2.approx, the running maxima, a
+    rounding of P that may flip within that error, the fp32 sums of P·V
+    and l)."""
+    from repro_torch.kernels import flash_attention as fa
+    o, slack = fa.flash_attention_bf16_reference(q, k, v, causal=causal)
+    g = got.double()
+    diff = (g - o).abs()
+    tol = 2.0 ** -8 * g.abs() + slack
+    return (bool((diff <= tol).all()), float(diff.max()),
+            float((diff / tol).max()))
 
 
 def phase_attention(dev):
@@ -539,14 +720,28 @@ def phase_attention(dev):
               and bool(torch.isfinite(o.float()).all()),
               f"flash_attention {tag}: non-finite or misshapen output")
         p = fa.flash_attention_plain(q, k, v, causal=causal)
+        lib = torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal)
         torch.cuda.synchronize()
-        ok, err = within_tolerance(o, p)
+        ok, err = within_tolerance(o, p, v)
+        lib_ok, lib_err = within_tolerance(lib, p, v)
         rel = err / max(float(p.float().abs().max()), 1e-30)
         log(f"[attention] {tag} B={B} H={H} (kv heads {Hkv}) S={S} d={d} "
             f"{dtype} causal={causal}: max abs err {err:.3e} (relative "
-            f"{rel:.2e}) vs flash_attention_plain")
+            f"{rel:.2e}) vs flash_attention_plain; "
+            f"scaled_dot_product_attention {lib_err:.3e} (within the "
+            f"bound: {lib_ok})")
         check(ok, f"flash_attention {tag}: kernel differs from the plain "
                   f"version beyond the tolerance (max abs err {err:.3e})")
+        if o.dtype == torch.bfloat16:
+            ok, ref_err, ratio = within_reference(o, q, k, v, causal)
+            log(f"[attention] {tag}: max abs err {ref_err:.3e} vs the "
+                f"float64 reference of the bf16 kernel's numerics, at most "
+                f"{ratio:.3f} of its elementwise bound")
+            check(ok, f"flash_attention {tag}: kernel differs from the "
+                      f"reference of its own numerics beyond the bound "
+                      f"(max abs err {ref_err:.3e}, {ratio:.3f} of the "
+                      f"bound)")
         errs.append(err)
     log(f"[attention] {len(outs)} calls in {t_path:.2f}s; launches: "
         f"{launches}")
@@ -693,14 +888,21 @@ def apply_timing(dev, main, slabs):
     return out
 
 
-def device_ms_per_launch(fn, n: int = 20):
+def device_ms_per_launch(fn, n: int = 20, tries: int = 3):
     """Device time of one call of ``fn`` (one kernel launch): the busy
     time of ``n`` back-to-back calls in one trace over ``n``, so the host's
-    work between launches is not counted; None when the trace holds no
-    device event."""
+    work between launches is not counted.  A trace that comes back with no
+    device event is taken again, up to ``tries`` traces; None when none
+    holds one."""
     fn()
-    busy, _ = device_busy_ms(lambda: [fn() for _ in range(n)])
-    return None if busy is None else busy / n
+    for attempt in range(tries):
+        busy, _ = device_busy_ms(lambda: [fn() for _ in range(n)])
+        if busy is not None:
+            if attempt:
+                log(f"[timing] device time read from trace {attempt + 1}: "
+                    f"the earlier traces held no device event")
+            return busy / n
+    return None
 
 
 def device_busy_ms(fn):
@@ -729,7 +931,7 @@ def device_busy_ms(fn):
     return (busy + hi - lo) / 1e3, len(spans)
 
 
-def phase_timing(dev, main, spmv_err):
+def phase_timing(dev, main, spmv_errs):
     import numpy as np
     import torch
     from repro_torch.core import parac
@@ -812,10 +1014,43 @@ def phase_timing(dev, main, spmv_err):
         source="src/repro_torch/csrc/ell_spmv_fleet.cu",
         replaces="src/repro/kernels/spmv.py:104",
         launches=main["launches"].get("ell_spmv_fleet", 0),
-        max_abs_err=spmv_err, ms=ms, plain_ms=plain_ms,
+        comparison_launches=main["full_row_launches"].get("ell_spmv_fleet",
+                                                          0),
+        max_abs_err=spmv_errs["full_row"], ms=ms, plain_ms=plain_ms,
         **bound(nbytes, ops), library_ms=lib_ms,
         shape=f"L={L} R={n_pad} K={K} nnz={nnz} x_bytes={x_bytes}",
         device_ms=device_ms))
+
+    # ell_sweep_fleet at the largest and at an average forward level, the
+    # 8 lanes of the main path's 8-rhs solve
+    for tag, lv in sweep_levels(h).items():
+        sw = sweep_call(h, lv, X)
+        Yp = X.clone()
+        ms = time_ms(lambda: sw(spmv.ell_sweep_fleet, X))
+        device_ms = device_ms_per_launch(
+            lambda: sw(spmv.ell_sweep_fleet, X))
+        plain_ms = time_ms(lambda: sw(spmv.ell_sweep_fleet_plain, Yp),
+                           reps=3)
+        lo = int(fa.fstart[h.fleet_row, lv])
+        hi = int(fa.fstart[h.fleet_row, lv + 1])
+        r = fa.frows[h.fleet_row, lo:hi].long()
+        lc, lvals = fa.fcols[h.fleet_row, r], fa.fvals[h.fleet_row, r]
+        live = int(fa.flen[h.fleet_row, r].sum())
+        # live slots (index and value) read once for all lanes, with the
+        # rows' list entries and lengths; the y sectors they gather in each
+        # lane; the level's y read and written in each lane
+        y_bytes = L * gathered_bytes(lc, lvals, 1)
+        nbytes = live * 8 + (hi - lo) * 8 + y_bytes + 2 * L * (hi - lo) * 4
+        rows.append(dict(
+            name="ell_sweep_fleet", route="cuda",
+            source="src/repro_torch/csrc/ell_spmv_fleet.cu",
+            replaces="src/repro/kernels/spmv.py:104",
+            launches=main["launches"].get("ell_sweep_fleet", 0),
+            max_abs_err=spmv_errs["sweep"], ms=ms, plain_ms=plain_ms,
+            **bound(nbytes, 2 * L * live), library_ms=None,
+            shape=f"{tag} forward level {lv}: L={L} rows={hi - lo} K={K} "
+                  f"live_slots={live} y_bytes={y_bytes}",
+            device_ms=device_ms))
     log_rows(rows)
     return rows
 
@@ -828,7 +1063,9 @@ def log_rows(rows) -> None:
             f"(device time {r['device_ms']} ms per launch), plain "
             f"{r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}){fp32}, launches {r['launches']}")
+            f"({r['bound_by']}){fp32}, launches {r['launches']}"
+            + ("" if "comparison_launches" not in r else
+               f" (comparison launches {r['comparison_launches']})"))
 
 
 def gathered_bytes(cols, vals, B: int) -> int:
@@ -874,17 +1111,17 @@ def main() -> None:
     phase_clique(dev)
     phase_factor16(dev)
     main_res = phase_main(dev)
-    spmv_err = phase_spmv(dev, main_res["handle"])
+    spmv_errs = phase_spmv(dev, main_res["handle"])
     lib_res = phase_library(dev, main_res)
     slabs = phase_slabs(dev, lib_res)
     attn = phase_attention(dev)
-    kernels = phase_timing(dev, main_res, spmv_err)
+    kernels = phase_timing(dev, main_res, spmv_errs)
     kernels += slab_rows_timing(dev, slabs, lib_res)
     kernels += attention_timing(dev, attn)
     apply_timing(dev, main_res, slabs)
     log(f"[done] all phases passed in {time.time() - t_start:.1f}s on {card}")
-    print(json.dumps({"kernels": [{k: r[k] for k in ROW_KEYS}
-                                  for r in kernels]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in ROW_KEYS + EXTRA_KEYS
+                                   if k in r} for r in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,12 +35,13 @@ and every per-lane reduction (dot products, norms, means) reduces one
 lane's row alone (:func:`_lane_rows`), so on the card too a lane takes
 the same iterates whichever lanes share its batch.
 Host syncs: one per iteration (``any(active)``), plus the preconditioner's
-own (the fleet's masked trisolve reads its level bound once per solve).
+own (the fleet's level sweeps read their level bound once per triangular
+solve; the per-level launch grids come from row counts kept on the host).
 """
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -76,18 +77,24 @@ class PCGBatchState(NamedTuple):
 class FleetArrays(NamedTuple):
     """Stacked, bucket-padded factors — the factor argument of the fleet
     PCG.  Row ``f`` holds one factor's Laplacian adjacency rows, row-indexed
-    forward/backward trisolve panels, inverse diagonal and true sizes; a
-    lane reads its factor's rows through ``fidx``, so the stack is never
-    copied per apply."""
+    forward/backward trisolve panels with their level row lists, inverse
+    diagonal and true sizes; a lane reads its factor's rows through
+    ``fidx``, so the stack is never copied per apply.  Level ``lv``'s rows
+    of factor ``f`` are ``frows[f, fstart[f, lv]:fstart[f, lv + 1]]``
+    (``fstart`` is ``n_pad`` past the factor's last level)."""
 
     lnbr: torch.Tensor    # int32[F, n_pad, Kl] — incident edges' far ends
     lw: torch.Tensor      # f32[F, n_pad, Kl]   — their weights (0: padding)
     fcols: torch.Tensor   # int32[F, n_pad, Kf] — fwd panels, row-indexed
     fvals: torch.Tensor   # f32[F, n_pad, Kf]
-    flevel: torch.Tensor  # int32[F, n_pad]
+    flen: torch.Tensor    # int32[F, n_pad] — live slots per fwd row
+    frows: torch.Tensor   # int32[F, n_pad] — rows sorted stably by level
+    fstart: torch.Tensor  # int32[F, f_levels + 1] — level offsets in frows
     bcols: torch.Tensor   # int32[F, n_pad, Kb] — bwd panels (unflipped)
     bvals: torch.Tensor   # f32[F, n_pad, Kb]
-    blevel: torch.Tensor  # int32[F, n_pad]
+    blen: torch.Tensor    # int32[F, n_pad]
+    brows: torch.Tensor   # int32[F, n_pad]
+    bstart: torch.Tensor  # int32[F, b_levels + 1]
     dinv: torch.Tensor    # f32[F, n_pad] — 1/D (0 where D <= 0 / phantom)
     nvalid: torch.Tensor  # int32[F] — true vertex count per factor
     fnlv: torch.Tensor    # int32[F] — true fwd level count per factor
@@ -139,12 +146,13 @@ def adjacency_matvec(nbr: torch.Tensor, w: torch.Tensor,
 
 
 def fleet_precondition(fa: FleetArrays, fidx: torch.Tensor, R: torch.Tensor,
-                       *, f_levels: int, b_levels: int, kind: str = "factor",
-                       active=None) -> torch.Tensor:
-    """Per-lane ``(G D Gᵀ)⁺`` apply: forward masked trisolve → D⁻¹ scale →
-    backward masked trisolve, each lane reading its own factor's panels
-    from the stack.  ``f_levels``/``b_levels`` are the bucket-wide
-    ceilings; the trip count of each solve is the live batch's maximum
+                       *, f_rows: Sequence[int], b_rows: Sequence[int],
+                       kind: str = "factor", active=None) -> torch.Tensor:
+    """Per-lane ``(G D Gᵀ)⁺`` apply: forward level sweeps → D⁻¹ scale →
+    backward level sweeps, each lane reading its own factor's panels and
+    level rows from the stack.  ``f_rows``/``b_rows`` are the bucket's
+    largest row count per level (host ints; their lengths the level
+    ceilings); the trip count of each solve is the live batch's maximum
     true level count (``active`` masks frozen lanes out of that bound —
     their output is discarded by the caller)."""
     if kind != "factor":
@@ -154,11 +162,12 @@ def fleet_precondition(fa: FleetArrays, fidx: torch.Tensor, R: torch.Tensor,
     if active is not None:
         flv = torch.where(active, flv, 1)
         blv = torch.where(active, blv, 1)
-    Y = ops.trisolve_fleet(fa.fcols, fa.fvals, fidx, fa.flevel[f], R,
-                           n_levels=f_levels, lane_levels=flv)
+    Y = ops.trisolve_fleet(fa.fcols, fa.fvals, fa.flen, fa.frows, fa.fstart,
+                           fidx, R, level_rows=f_rows, lane_levels=flv)
     Z = Y * fa.dinv[f]
-    return ops.trisolve_fleet(fa.bcols, fa.bvals, fidx, fa.blevel[f], Z,
-                              n_levels=b_levels, lane_levels=blv)
+    return ops.trisolve_fleet(fa.bcols, fa.bvals, fa.blen, fa.brows,
+                              fa.bstart, fidx, Z, level_rows=b_rows,
+                              lane_levels=blv)
 
 
 def project_lanes(Y: torch.Tensor, nvalid: torch.Tensor) -> torch.Tensor:
@@ -311,8 +320,9 @@ def pcg(matvec: Callable, precond: Callable, b: torch.Tensor, *,
                      converged=res.converged[0])
 
 
-def pcg_fleet_init(fa: FleetArrays, fidx, B, tol, maxiter, *, f_levels: int,
-                   b_levels: int, kind: str = "factor",
+def pcg_fleet_init(fa: FleetArrays, fidx, B, tol, maxiter, *,
+                   f_rows: Sequence[int], b_rows: Sequence[int],
+                   kind: str = "factor",
                    project: bool = True) -> FleetPCGState:
     """Set up the fleet PCG carry for columns ``B`` ``(L, n_pad)`` (zero
     past each factor's true n); lane ``l`` solves against factor
@@ -323,8 +333,8 @@ def pcg_fleet_init(fa: FleetArrays, fidx, B, tol, maxiter, *, f_levels: int,
     tol = torch.as_tensor(tol, dtype=torch.float32, device=dev).expand(L)
     base = pcg_batched_init(
         partial(fleet_matvec, fa, fidx),
-        partial(fleet_precondition, fa, fidx, f_levels=f_levels,
-                b_levels=b_levels, kind=kind),
+        partial(fleet_precondition, fa, fidx, f_rows=f_rows,
+                b_rows=b_rows, kind=kind),
         B, tol=tol, project=project, nvalid=fa.nvalid[fidx.long()])
     return FleetPCGState(
         *base, fidx=fidx, tol=tol.contiguous(),
@@ -332,42 +342,45 @@ def pcg_fleet_init(fa: FleetArrays, fidx, B, tol, maxiter, *, f_levels: int,
                                 device=dev).expand(L).contiguous())
 
 
-def pcg_fleet_body(fa: FleetArrays, s: FleetPCGState, *, f_levels: int,
-                   b_levels: int, kind: str = "factor",
+def pcg_fleet_body(fa: FleetArrays, s: FleetPCGState, *,
+                   f_rows: Sequence[int], b_rows: Sequence[int],
+                   kind: str = "factor",
                    project: bool = True) -> FleetPCGState:
     """One frozen-lane fleet PCG iteration: lane ``l`` multiplies by and
     preconditions with factor ``fidx[l]`` of the stack."""
     return _pcg_batched_body(
         partial(fleet_matvec, fa, s.fidx),
-        partial(fleet_precondition, fa, s.fidx, f_levels=f_levels,
-                b_levels=b_levels, kind=kind, active=s.active),
+        partial(fleet_precondition, fa, s.fidx, f_rows=f_rows,
+                b_rows=b_rows, kind=kind, active=s.active),
         tol=s.tol, maxiter=s.maxiter, project=project,
         nvalid=fa.nvalid[s.fidx.long()])(s)
 
 
 def pcg_fleet_step(fa: FleetArrays, state: FleetPCGState, *, k: int,
-                   f_levels: int, b_levels: int, kind: str = "factor",
+                   f_rows: Sequence[int], b_rows: Sequence[int],
+                   kind: str = "factor",
                    project: bool = True) -> FleetPCGState:
     """Advance every active lane by up to ``k`` iterations (early exit
     when all lanes freeze).  Step slicing is exact."""
     for _ in range(k):
         if not bool(state.active.any()):
             break
-        state = pcg_fleet_body(fa, state, f_levels=f_levels,
-                               b_levels=b_levels, kind=kind, project=project)
+        state = pcg_fleet_body(fa, state, f_rows=f_rows,
+                               b_rows=b_rows, kind=kind, project=project)
     return state
 
 
 def pcg_fleet_solve(fa: FleetArrays, fidx, B, tol, maxiter, *,
-                    f_levels: int, b_levels: int, kind: str = "factor",
+                    f_rows: Sequence[int], b_rows: Sequence[int],
+                    kind: str = "factor",
                     project: bool = True) -> FleetPCGState:
     """One-shot fleet solve: init then iterate until every lane freezes
     (one host read of ``any(active)`` per iteration)."""
-    state = pcg_fleet_init(fa, fidx, B, tol, maxiter, f_levels=f_levels,
-                           b_levels=b_levels, kind=kind, project=project)
+    state = pcg_fleet_init(fa, fidx, B, tol, maxiter, f_rows=f_rows,
+                           b_rows=b_rows, kind=kind, project=project)
     while bool(state.active.any()):
-        state = pcg_fleet_body(fa, state, f_levels=f_levels,
-                               b_levels=b_levels, kind=kind, project=project)
+        state = pcg_fleet_body(fa, state, f_rows=f_rows,
+                               b_rows=b_rows, kind=kind, project=project)
     return state
 
 

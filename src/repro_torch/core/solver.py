@@ -58,14 +58,38 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _grow(x: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
-    """Zero-pad ``x`` up to ``shape`` (every axis grows or stays)."""
+def _grow(x: torch.Tensor, shape: Tuple[int, ...],
+          value: int = 0) -> torch.Tensor:
+    """Pad ``x`` with ``value`` (zeros by default) up to ``shape`` (every
+    axis grows or stays)."""
     if tuple(x.shape) == tuple(shape):
         return x
     pad = []
     for s, t in reversed(list(zip(x.shape, shape))):
         pad += [0, t - s]
-    return torch.nn.functional.pad(x, pad)
+    return torch.nn.functional.pad(x, pad, value=value)
+
+
+def _level_lists(level_of: torch.Tensor, n_levels: int, width: int):
+    """One triangular solve's level row list: its rows sorted stably by
+    level, each level's start offset in that list (``width`` entries,
+    ``n`` from the end of the last level on, so every level past it is
+    empty) and the row count per level (host ints)."""
+    n = level_of.shape[0]
+    rows = torch.sort(level_of, stable=True).indices.to(torch.int32)
+    counts = torch.bincount(level_of.long(), minlength=n_levels)
+    start = torch.full((width,), n, dtype=torch.int32,
+                       device=level_of.device)
+    start[0] = 0
+    start[1:n_levels + 1] = torch.cumsum(counts, 0).to(torch.int32)
+    return rows, start, counts.tolist()
+
+
+def _max_rows(a: List[int], b: List[int]) -> List[int]:
+    """Elementwise maximum of two per-level row counts."""
+    n = max(len(a), len(b))
+    a, b = a + [0] * (n - len(a)), b + [0] * (n - len(b))
+    return [max(x, y) for x, y in zip(a, b)]
 
 
 class _PaddedFactor:
@@ -93,12 +117,15 @@ class _PaddedFactor:
 class FactorFleet:
     """Stacked, bucket-padded factors of one ``(family, n_pad, k_tier)``,
     plus the row bookkeeping that lets handles come and go.  ``arrays``
-    is the live :class:`pcg.FleetArrays` stack.  Rows are claimed by
+    is the live :class:`pcg.FleetArrays` stack; ``f_rows``/``b_rows``
+    keep on the host the largest row count per level of any member
+    admitted, forward and backward (the level sweeps' launch grids; their
+    lengths are the bucket's level ceilings).  Rows are claimed by
     weak reference: a row frees itself onto a min-heap when its handle
     dies, and admission reuses dead rows (lowest first) before growing
     the stack.  Growth along any axis zero-pads — padding Laplacian slots
-    and panel slots carry zero weights — so members' solves are unchanged
-    by it."""
+    and panel slots carry zero weights — and pads level starts with
+    ``n_pad`` (an empty level), so members' solves are unchanged by it."""
 
     def __init__(self, n_pad: int, family: str = "ac", kind: str = "factor",
                  k_tier: int = 0, device=None):
@@ -110,12 +137,22 @@ class FactorFleet:
         self.Kl = 1
         self.Kf = 1
         self.Kb = 1
-        self.f_levels = 1          # bucket-wide level ceilings
-        self.b_levels = 1
+        self.f_rows: List[int] = [0]   # per-level row maxima (host)
+        self.b_rows: List[int] = [0]
         self.arrays: Optional[FleetArrays] = None
         self._rows: List[Optional[weakref.ref]] = []
         self._free: List[int] = []
         self._ref2row: Dict[weakref.ref, int] = {}
+
+    @property
+    def f_levels(self) -> int:
+        """Bucket-wide forward level ceiling."""
+        return len(self.f_rows)
+
+    @property
+    def b_levels(self) -> int:
+        """Bucket-wide backward level ceiling."""
+        return len(self.b_rows)
 
     @property
     def capacity(self) -> int:
@@ -165,6 +202,9 @@ class FactorFleet:
         Kl = max(self.Kl, *(pf.lnbr.shape[1] for _, pf in pairs))
         Kf = max(self.Kf, *(pf.fwd.K for _, pf in pairs))
         Kb = max(self.Kb, *(pf.bwd.K for _, pf in pairs))
+        pfs = [pf for _, pf in pairs]
+        Lf = max(self.f_levels, *(p.fwd.n_levels for p in pfs))
+        Lb = max(self.b_levels, *(p.bwd.n_levels for p in pfs))
         rows = self._claim_rows(len(pairs))
         F = max(_next_pow2(max(rows) + 1), self.capacity)
         np_ = self.n_pad
@@ -177,9 +217,14 @@ class FactorFleet:
             a = FleetArrays(
                 lnbr=z((F, np_, Kl), i32), lw=z((F, np_, Kl), f32),
                 fcols=z((F, np_, Kf), i32), fvals=z((F, np_, Kf), f32),
-                flevel=z((F, np_), i32),
+                flen=z((F, np_), i32),
+                frows=z((F, np_), i32),
+                fstart=torch.full((F, Lf + 1), np_, dtype=i32, device=dev),
                 bcols=z((F, np_, Kb), i32), bvals=z((F, np_, Kb), f32),
-                blevel=z((F, np_), i32), dinv=z((F, np_), f32),
+                blen=z((F, np_), i32),
+                brows=z((F, np_), i32),
+                bstart=torch.full((F, Lb + 1), np_, dtype=i32, device=dev),
+                dinv=z((F, np_), f32),
                 nvalid=z((F,), i32), fnlv=torch.ones(F, dtype=i32, device=dev),
                 bnlv=torch.ones(F, dtype=i32, device=dev))
         else:
@@ -188,16 +233,23 @@ class FactorFleet:
                 lw=_grow(a.lw, (F, np_, Kl)),
                 fcols=_grow(a.fcols, (F, np_, Kf)),
                 fvals=_grow(a.fvals, (F, np_, Kf)),
-                flevel=_grow(a.flevel, (F, np_)),
+                flen=_grow(a.flen, (F, np_)),
+                frows=_grow(a.frows, (F, np_)),
+                fstart=_grow(a.fstart, (F, Lf + 1), value=np_),
                 bcols=_grow(a.bcols, (F, np_, Kb)),
                 bvals=_grow(a.bvals, (F, np_, Kb)),
-                blevel=_grow(a.blevel, (F, np_)),
+                blen=_grow(a.blen, (F, np_)),
+                brows=_grow(a.brows, (F, np_)),
+                bstart=_grow(a.bstart, (F, Lb + 1), value=np_),
                 dinv=_grow(a.dinv, (F, np_)),
                 nvalid=_grow(a.nvalid, (F,)),
                 fnlv=torch.clamp(_grow(a.fnlv, (F,)), min=1),
                 bnlv=torch.clamp(_grow(a.bnlv, (F,)), min=1))
         ix = torch.tensor(rows, dtype=torch.int64, device=dev)
-        pfs = [pf for _, pf in pairs]
+        flists = [_level_lists(p.fwd.level_of, p.fwd.n_levels, Lf + 1)
+                  for p in pfs]
+        blists = [_level_lists(p.bwd.level_of, p.bwd.n_levels, Lb + 1)
+                  for p in pfs]
 
         def put(x, vals):
             x[ix] = torch.stack([v.to(dev) for v in vals])
@@ -206,10 +258,14 @@ class FactorFleet:
         put(a.lw, [_grow(p.lw, (np_, Kl)) for p in pfs])
         put(a.fcols, [_grow(p.fwd.cols, (np_, Kf)) for p in pfs])
         put(a.fvals, [_grow(p.fwd.vals, (np_, Kf)) for p in pfs])
-        put(a.flevel, [p.fwd.level_of for p in pfs])
+        put(a.flen, [p.fwd.row_len for p in pfs])
+        put(a.frows, [r for r, _, _ in flists])
+        put(a.fstart, [st for _, st, _ in flists])
         put(a.bcols, [_grow(p.bwd.cols, (np_, Kb)) for p in pfs])
         put(a.bvals, [_grow(p.bwd.vals, (np_, Kb)) for p in pfs])
-        put(a.blevel, [p.bwd.level_of for p in pfs])
+        put(a.blen, [p.bwd.row_len for p in pfs])
+        put(a.brows, [r for r, _, _ in blists])
+        put(a.bstart, [st for _, st, _ in blists])
         put(a.dinv, [p.dinv for p in pfs])
         a.nvalid[ix] = torch.tensor([p.n for p in pfs], dtype=i32, device=dev)
         a.fnlv[ix] = torch.tensor([p.fwd.n_levels for p in pfs], dtype=i32,
@@ -218,8 +274,10 @@ class FactorFleet:
                                   device=dev)
         self.arrays = a
         self.Kl, self.Kf, self.Kb = Kl, Kf, Kb
-        self.f_levels = max(self.f_levels, *(p.fwd.n_levels for p in pfs))
-        self.b_levels = max(self.b_levels, *(p.bwd.n_levels for p in pfs))
+        for _, _, counts in flists:
+            self.f_rows = _max_rows(self.f_rows, counts)
+        for _, _, counts in blists:
+            self.b_rows = _max_rows(self.b_rows, counts)
         for (handle, _), row in zip(pairs, rows):
             ref = weakref.ref(handle, self._row_died)
             self._ref2row[ref] = row
@@ -289,8 +347,8 @@ class PreconditionerHandle:
         r = torch.as_tensor(r, dtype=torch.float32, device=self.device)
         R = r[None] if r.dim() == 1 else r.T
         out = fleet_precondition(self.fleet.arrays, self._fidx(R.shape[0]),
-                                 self._pad(R), f_levels=self.fleet.f_levels,
-                                 b_levels=self.fleet.b_levels,
+                                 self._pad(R), f_rows=self.fleet.f_rows,
+                                 b_rows=self.fleet.b_rows,
                                  kind=self.fleet.kind)[:, :self.n]
         return out[0] if r.dim() == 1 else out.T
 
@@ -308,7 +366,7 @@ class PreconditionerHandle:
             self.fleet.arrays, self._fidx(L), self._pad(B2),
             torch.full((L,), tol, dtype=torch.float32, device=self.device),
             torch.full((L,), maxiter, dtype=torch.int32, device=self.device),
-            f_levels=self.fleet.f_levels, b_levels=self.fleet.b_levels,
+            f_rows=self.fleet.f_rows, b_rows=self.fleet.b_rows,
             kind=self.fleet.kind, project=project)
         res = pcg_fleet_result(state, self.n)
         if B.dim() == 1:

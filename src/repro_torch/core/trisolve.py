@@ -112,8 +112,9 @@ class PackedSchedule:
     """One triangular solve as **row-indexed** ELL panels: row ``i``'s
     in-edges occupy row ``i`` of ``cols``/``vals`` (zero-padded to K),
     ``level_of[i]`` is its dependency level.  The backward schedule stays
-    in original index space (the masked level loop needs no topological
-    index order)."""
+    in original index space (the level loop needs no topological index
+    order).  Rows are left-packed: row ``i``'s live slots are its first
+    ``row_len[i]`` (its in-degree)."""
 
     n: int                  # true rows (rows n..n_pad are phantom)
     n_pad: int
@@ -122,11 +123,13 @@ class PackedSchedule:
     cols: torch.Tensor      # int32[n_pad, K]
     vals: torch.Tensor      # f32[n_pad, K]
     level_of: torch.Tensor  # int32[n_pad] (0 for phantom rows)
+    row_len: torch.Tensor   # int32[n_pad] — live slots per row
 
     @property
     def device_bytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for t in (self.cols, self.vals, self.level_of))
+                   for t in (self.cols, self.vals, self.level_of,
+                             self.row_len))
 
 
 def _propagate_levels_fleet(dst: torch.Tensor, src: torch.Tensor, *, n: int,
@@ -154,7 +157,8 @@ def _pack_row_panels(dst: torch.Tensor, src: torch.Tensor, val: torch.Tensor,
                      *, n: int, K: int):
     """Row-indexed ELL packing of one edge set: edge ``e`` lands in slot
     ``(dst_e, rank_e)``, rank = position within its dst group in edge
-    order.  Padding edges (``dst == n``) go to a dropped row."""
+    order.  Padding edges (``dst == n``) go to a dropped row.  Returns
+    ``(cols, vals, row_len)``, ``row_len`` the live slots of each row."""
     sd, order = torch.sort(dst, stable=True)
     rank = _run_ranks(sd)
     dest = torch.where(sd < n, sd * K + rank, n * K)
@@ -162,7 +166,8 @@ def _pack_row_panels(dst: torch.Tensor, src: torch.Tensor, val: torch.Tensor,
     vals = torch.zeros(n * K + 1, dtype=val.dtype, device=dst.device)
     cols.scatter_(0, dest, src[order].to(torch.int32))
     vals.scatter_(0, dest, val[order])
-    return cols[:n * K].view(n, K), vals[:n * K].view(n, K)
+    row_len = torch.bincount(sd[sd < n], minlength=n).to(torch.int32)
+    return cols[:n * K].view(n, K), vals[:n * K].view(n, K), row_len
 
 
 def build_schedules_batched(devs: List[DeviceFactor]
@@ -204,13 +209,14 @@ def build_schedules_batched(devs: List[DeviceFactor]
         halves = []
         for row in (b, B + b):                 # forward, then backward
             K = max(_next_pow2(int(kmax[row])), 1)
-            cols, vals = _pack_row_panels(
+            cols, vals, row_len = _pack_row_panels(
                 torch.where(DST[row] < n_pad, DST[row], n_pad), SRC[row],
                 VAL[row], n=n_pad, K=K)
             halves.append(PackedSchedule(
                 n=d.n, n_pad=n_pad, n_levels=int(nlv[row]) + 1, K=K,
                 cols=cols, vals=vals,
-                level_of=levels[row, :n_pad].contiguous()))
+                level_of=levels[row, :n_pad].contiguous(),
+                row_len=row_len))
         out.append((halves[0], halves[1]))
     return out
 

@@ -1,12 +1,13 @@
 """Public wrappers around the kernels: width padding for the elimination
 kernel, layout conversion, and the triangular solves built on the SpMV
-kernels — level-masked over row-indexed panels (``trisolve_masked``,
-``trisolve_fleet``) and level by level over level-sorted slabs
-(``trisolve_panels``, ``trisolve_levels``).
+kernels — over the level rows of row-indexed fleet panels
+(``trisolve_fleet``), level-masked over row-indexed panels
+(``trisolve_masked``, ``trisolve_fleet_masked``) and level by level over
+level-sorted slabs (``trisolve_panels``, ``trisolve_levels``).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,19 +46,44 @@ def ell_spmv_fleet(cols, vals, fidx, x) -> torch.Tensor:
     return _spmv.ell_spmv_fleet(cols, vals, fidx.to(torch.int32), x)
 
 
-def trisolve_fleet(cols, vals, fidx, level_of, y, *, n_levels: int,
+def trisolve_fleet(cols, vals, lens, rows, starts, fidx, y, *,
+                   level_rows: Sequence[int],
                    lane_levels: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
-    """Lane-batched level-masked unit-triangular solve.  Each level runs
-    the full-row fleet SpMV and commits the rows at that level:
-    ``y = where(level_of == lv, y - A y, y)`` for ``lv = 1 .. bound-1``.
+    """Lane-batched unit-triangular solve over level rows: one
+    ``ell_sweep_fleet`` launch per level ``lv = 1 .. bound-1`` updates, in
+    place on a copy of ``y`` ``[L, n]``, only the rows at that level:
+    ``y[l, i] -= Σ_k vals[f, i, k]·y[l, cols[f, i, k]]``, ``f = fidx[l]``.
 
-    ``cols``/``vals`` are a fleet stack ``[F, n, K]`` read through
-    ``fidx`` ``[L]``; ``level_of`` is ``[L, n]``.
-    ``n_levels`` is the static ceiling; ``lane_levels`` ``[L]`` (each
-    lane's true level count) lowers the bound to the batch's live maximum
-    — one host read per solve.  A level past a lane's depth selects none
-    of its rows, so the bound never changes a result."""
+    ``cols``/``vals`` ``[F, n, K]``, ``lens`` (live slots per row) and
+    ``rows`` (each factor's rows sorted stably by level) ``[F, n]`` and
+    ``starts`` ``[F, >= levels + 1]`` (each level's offset into ``rows``)
+    are fleet stacks read through ``fidx`` ``[L]``.  ``level_rows`` (host
+    ints) is the bucket's largest row count per level; its length is the
+    static level ceiling.  ``lane_levels`` ``[L]`` (each lane's true level
+    count) lowers the bound to the batch's live maximum — one host read
+    per solve.  A level past a lane's depth has no rows for it, so the
+    bound never changes a result.  Each committed row equals
+    :func:`trisolve_fleet_masked`'s bit for bit; ``y`` is not modified."""
+    bound = len(level_rows)
+    if lane_levels is not None:
+        bound = min(int(lane_levels.max()), bound)
+    y = y.clone(memory_format=torch.contiguous_format)
+    _spmv.ell_sweep_fleet(cols, vals, lens, rows, starts,
+                          fidx.to(torch.int32), y, level_rows[:bound])
+    return y
+
+
+def trisolve_fleet_masked(cols, vals, fidx, level_of, y, *, n_levels: int,
+                          lane_levels: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """The full-row form of :func:`trisolve_fleet`: each level runs the
+    full-row fleet SpMV and commits the rows at that level,
+    ``y = where(level_of == lv, y - A y, y)`` for ``lv = 1 .. bound-1``
+    (``level_of`` ``[L, n]``; ``n_levels`` the static ceiling,
+    ``lane_levels`` lowering it as there).  Every level reads the whole
+    padded panel; kept as the composition the level sweep is held
+    against."""
     bound = n_levels
     if lane_levels is not None:
         bound = min(int(lane_levels.max()), n_levels)

@@ -9,6 +9,13 @@ versions.  A CPU tensor takes the plain version, a CUDA tensor the kernel
   kernel ``ell_spmv_fleet_pallas`` (``repro/kernels/spmv.py``), which took
   per-lane panels ``[L, R, K]`` — the ``fidx = arange(L)`` case.  Source:
   ``csrc/ell_spmv_fleet.cu``.
+* ``ell_sweep_fleet`` — the fleet's triangular-solve sweeps over level
+  rows, in place: for each level ``lv``, ``y[l, i] -= Σ_{k < len[f, i]}
+  vals[f, i, k] · y[l, cols[f, i, k]]`` for the rows ``i`` of level
+  ``lv`` of factor ``f = fidx[l]``, listed in ``rows[f]`` from
+  ``starts[f, lv]`` to ``starts[f, lv + 1]``.  One launch per level of
+  the same source's second kernel; a committed row equals
+  ``ell_spmv_fleet`` followed by ``y - Y`` bit for bit.
 * ``ell_spmv`` — one vector: ``y[i] = Σ_k vals[i, k] · x[cols[i, k]]``
   for any ``R`` and ``K``.  Replaces ``ell_spmv_pallas``.  Source:
   ``csrc/ell_spmv.cu``.
@@ -64,10 +71,52 @@ def ell_spmv_fleet_plain(cols, vals, fidx, x) -> torch.Tensor:
     return y
 
 
-def _launcher(name: str, n_ptr: int, n_int: int):
-    """The C entry ``<name>_launch`` of ``csrc/<name>.cu``: ``n_ptr``
-    pointers, ``n_int`` ints and the stream; returns a cudaError_t."""
-    f = getattr(runtime.load(name), f"{name}_launch")
+def ell_sweep_fleet_plain(cols, vals, lens, rows, starts, fidx, y,
+                          level_rows) -> None:
+    """The plain version of ``ell_sweep_fleet``, on the same arguments and
+    in place: level by level, lane by lane, the lane's level rows gathered
+    through its factor's list, summed as :func:`ell_spmv_plain` sums them
+    (over the level's longest live length: the slots past a row's own
+    length hold 0.0 and add exactly nothing), subtracted and scattered
+    back."""
+    _check_sweep_shapes(cols, vals, lens, rows, starts, fidx, y, level_rows)
+    fl = fidx.tolist()
+    for lv in range(1, len(level_rows)):
+        if not level_rows[lv]:
+            continue
+        for lane, f in enumerate(fl):
+            lo, hi = int(starts[f, lv]), int(starts[f, lv + 1])
+            if hi <= lo:
+                continue
+            r = rows[f, lo:hi].long()
+            k = int(lens[f, r].max())
+            if k:
+                y[lane, r] = y[lane, r] - ell_spmv_plain(
+                    cols[f, r, :k], vals[f, r, :k], y[lane])
+
+
+def _check_sweep_shapes(cols, vals, lens, rows, starts, fidx, y,
+                        level_rows) -> None:
+    """The sweep's shape contract, for the kernel and the plain version:
+    levels ``1 .. len(level_rows) - 1`` read ``starts[:, lv + 1]``, so
+    ``starts`` needs ``len(level_rows) + 1`` columns."""
+    F, R = cols.shape[:2]
+    L = fidx.shape[0]
+    if (cols.dim() != 3 or vals.shape != cols.shape
+            or lens.shape != (F, R) or rows.shape != (F, R)
+            or starts.dim() != 2 or starts.shape[0] != F
+            or y.shape != (L, R) or fidx.dim() != 1
+            or len(level_rows) + 1 > starts.shape[1]):
+        raise ValueError("ell_sweep_fleet: cols/vals [F, R, K], lens/rows "
+                         "[F, R], starts [F, >= levels + 1], y [L, R] and "
+                         "fidx [L] must agree")
+
+
+def _launcher(name: str, n_ptr: int, n_int: int, entry: str = ""):
+    """The C entry ``<entry or name>_launch`` of ``csrc/<name>.cu``:
+    ``n_ptr`` pointers, ``n_int`` ints and the stream; returns a
+    cudaError_t."""
+    f = getattr(runtime.load(name), f"{entry or name}_launch")
     f.restype = ctypes.c_int
     f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                   + [ctypes.c_void_p])
@@ -98,6 +147,47 @@ def ell_spmv_fleet(cols, vals, fidx, x) -> torch.Tensor:
     runtime.check_launch("ell_spmv_fleet", err)
     runtime.count_launch("ell_spmv_fleet")
     return y
+
+
+def ell_sweep_fleet(cols, vals, lens, rows, starts, fidx, y,
+                    level_rows) -> None:
+    """The sweeps of one lane-batched unit-triangular solve, in place on
+    ``y`` float32 ``[L, R]``: levels ``1 .. len(level_rows) - 1`` in order,
+    one launch each.  cols int32 / vals float32 ``[F, R, K]``; lens (live
+    slots per row) and rows (each factor's rows sorted stably by level)
+    int32 ``[F, R]``; starts int32 ``[F, n_starts]`` (level ``lv``'s rows
+    of factor ``f`` are ``rows[f, starts[f, lv]:starts[f, lv + 1]]``);
+    fidx int32 ``[L]``.  ``level_rows`` (host ints) bounds each level's
+    row count over the lanes; a level whose entry is 0 is skipped.  The
+    tensors are checked once, not per level."""
+    if y.device.type == "cpu":
+        return ell_sweep_fleet_plain(cols, vals, lens, rows, starts, fidx, y,
+                                     level_rows)
+    if y.device.type != "cuda":
+        raise ValueError(f"ell_sweep_fleet: unsupported device {y.device}")
+    dev = y.device
+    runtime.require(cols, "cols", torch.int32, 3, dev)
+    runtime.require(vals, "vals", torch.float32, 3, dev)
+    for t, what in ((lens, "lens"), (rows, "rows"), (starts, "starts")):
+        runtime.require(t, what, torch.int32, 2, dev)
+    runtime.require(fidx, "fidx", torch.int32, 1, dev)
+    runtime.require(y, "y", torch.float32, 2, dev)
+    _check_sweep_shapes(cols, vals, lens, rows, starts, fidx, y, level_rows)
+    F, R, K = cols.shape
+    L = y.shape[0]
+    n_starts = starts.shape[1]
+    launch = _launcher("ell_spmv_fleet", 7, 6, "ell_sweep_fleet")
+    stream = runtime.stream_ptr(y)
+    ptrs = (cols.data_ptr(), vals.data_ptr(), lens.data_ptr(),
+            rows.data_ptr(), starts.data_ptr(), fidx.data_ptr(),
+            y.data_ptr())
+    for lv in range(1, len(level_rows)):
+        if not level_rows[lv]:
+            continue
+        err = launch(*ptrs, L, R, K, n_starts, lv, int(level_rows[lv]),
+                     stream)
+        runtime.check_launch("ell_sweep_fleet", err)
+        runtime.count_launch("ell_sweep_fleet")
 
 
 def _check_panel(name, cols, vals, x, x_ndim):

@@ -14,6 +14,14 @@ Tolerances:
   at most ``2**-7`` of the value (8 bits of mantissa), and ``atol =
   1e-2`` covers the outputs near zero, where ``2**-7`` of the value is
   no larger than the float32 difference itself.
+* the float64 reference of the bf16 kernel's numerics
+  (``flash_attention_bf16_reference``, which rounds P to bf16): against
+  the oracle, the bound derived from that rounding (P's rounding moves an
+  output by at most ``u max|v|``, u = 2**-8, as the weights p / l sum to
+  1; each side's output rounding by ``u |o|``; the fp32 sums by ``(S + d)
+  2**-24 max|v|``).  Its own bound is held against an fp32 emulation of
+  the kernel's steps, which must pass, and against the same emulation
+  with one middle KV tile left out, which must fail on every long row.
 """
 import numpy as np
 import pytest
@@ -118,3 +126,76 @@ def test_flash_attention_rejects_other_devices():
     q = torch.zeros((1, 1, 64, 32), device="meta")
     with pytest.raises(ValueError):
         tfa.flash_attention(q, q, q, q_tile=64, block_k=64)
+
+
+def _emulate_bf16_kernel(q, k, v, causal, drop=None):
+    """The bf16 kernel's steps in float32 on the CPU (fp32 scores times the
+    fp32 constant scale·log2(e), KV tiles of 64 with a running maximum,
+    exp2, P rounded to bf16 for P·V, l from the fp32 P, ``acc · (1/l)``
+    rounded to bf16); ``drop`` leaves one KV tile out."""
+    B, H, S, d = q.shape
+    T = tfa.KV_TILE
+    qf, kf, vf = q.float(), k.float(), v.float()
+    c = (torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32)
+         * torch.tensor(np.log2(np.e), dtype=torch.float32))
+    m = torch.full((B, H, S), -1e30)
+    l = torch.zeros((B, H, S))
+    acc = torch.zeros((B, H, S, d))
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, T):
+        if k0 // T == drop:
+            continue
+        x = (qf @ kf[:, :, k0:k0 + T].transpose(-1, -2)) * c
+        cols = k0 + torch.arange(x.shape[-1])[None, :]
+        keep = (cols <= rows) if causal else torch.ones_like(cols, dtype=bool)
+        x = torch.where(keep, x, torch.tensor(-1e30))
+        m_new = torch.maximum(m, x.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        l = alpha * l + p.sum(-1)
+        acc = (acc * alpha[..., None]
+               + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + T])
+        m = m_new
+    return (acc * (1.0 / l)[..., None]).to(torch.bfloat16)
+
+
+def _bf16_qkv(S, d, seed):
+    return [torch.from_numpy(a).to(torch.bfloat16)
+            for a in _qkv(1, 2, S, d, seed)]
+
+
+@pytest.mark.parametrize("S,d,causal", [(1024, 64, True), (1024, 128, False),
+                                        (200, 256, True), (600, 32, False)])
+def test_bf16_reference_bound_holds_for_kernel_steps(S, d, causal):
+    q, k, v = _bf16_qkv(S, d, S + d)
+    o, slack = tfa.flash_attention_bf16_reference(q, k, v, causal=causal)
+    got = _emulate_bf16_kernel(q, k, v, causal).double()
+    assert bool(((got - o).abs() <= 2.0 ** -8 * got.abs() + slack).all())
+    assert bool((slack >= 0).all()) and bool(torch.isfinite(slack).all())
+
+
+@pytest.mark.parametrize("d,causal", [(64, True), (128, False)])
+def test_bf16_reference_bound_catches_a_dropped_tile(d, causal):
+    """One middle KV tile of 64 left out of 16 is caught on every row of
+    the last quarter (the rows whose softmax spreads widest)."""
+    S = 1024
+    q, k, v = _bf16_qkv(S, d, d)
+    o, slack = tfa.flash_attention_bf16_reference(q, k, v, causal=causal)
+    got = _emulate_bf16_kernel(q, k, v, causal, drop=8).double()
+    bad = (got - o).abs() > 2.0 ** -8 * got.abs() + slack
+    assert bool(bad[..., 3 * S // 4:, :].any(dim=-1).all())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_reference_matches_ref(causal):
+    """The float64 reference of the bf16 kernel against the oracle on the
+    same bf16 values, within the bound derived from rounding P."""
+    S, d = 256, 64
+    qb, kb, vb = _bf16_qkv(S, d, 5)
+    o, _ = tfa.flash_attention_bf16_reference(qb, kb, vb, causal=causal)
+    want = _oracle(*(t.float().numpy() for t in (qb, kb, vb)), causal)
+    u = 2.0 ** -8
+    vmax = vb.float().abs().amax(dim=(-2, -1), keepdim=True).numpy()
+    tol = u * (np.abs(o.numpy()) + np.abs(want)) \
+        + (u + (S + d) * 2.0 ** -24) * vmax
+    assert bool((np.abs(o.numpy() - want) <= tol).all())
