@@ -45,15 +45,29 @@ to a plain version while a GPU is present):
            device schedules), then laplacian_pcg (1 rhs) and
            laplacian_pcg_batched (the same 8 rhs as the main path), tol
            1e-6, maxiter 500.  Every lane must converge with a true residual
-           below 1e-4, ell_spmv and ell_spmv_multi must have launched, and
-           lane 0 of the block, solved alone afterwards, must take the same
-           iterates bit for bit.
+           below 1e-4, the level sweeps ell_sweep and ell_sweep_multi must
+           have launched and the full-row ell_spmv and ell_spmv_multi must
+           not, and lane 0 of the block, solved alone afterwards, must take
+           the same iterates bit for bit.  Then one 1-rhs and one 8-rhs
+           apply of the path's preconditioner against the per-level
+           full-row composition the sweeps replaced
+           (ops.trisolve_panels_full: the slab kernel over each whole
+           padded slab, then y[rows] -= Y) on the same input: bitwise
+           equal, both times printed.  The full-row kernels' launches over
+           these two applies are their comparison_launches in the kernel
+           table; their launches there are the library path's, 0.
   slabs    ell_spmv and ell_spmv_multi (8 columns) vs their plain versions
            on level slabs of the library path's schedules (the largest
            forward and backward slabs and a small ragged one): relative
            error <= 1e-5; ell_spmv bitwise equal to ell_spmv_fleet's lane
            on the same slab, and each ell_spmv_multi column bitwise equal to
-           ell_spmv of that column.
+           ell_spmv of that column.  ell_sweep and ell_sweep_multi (B = 8
+           and 11) at the largest, an average and a small ragged forward
+           level, one level each: relative error <= 1e-5 vs their plain
+           versions; ell_sweep bitwise equal to ell_sweep_fleet's lane (a
+           row-indexed copy of the slab at the panel's full width) and to
+           ell_spmv + commit, each ell_sweep_multi column bitwise equal to
+           ell_sweep of that column.
   attention the flash_attention path through its entry point, launch
            counts reset just before and read just after, at the attention
            shapes of two configured models in the dtype they serve in —
@@ -77,7 +91,10 @@ to a plain version while a GPU is present):
            forward slab for ell_spmv and ell_spmv_multi, the two bf16
            model shapes for flash_attention, whose library call is
            scaled_dot_product_attention; ell_sweep_fleet at the main
-           factor's largest and at an average forward level, 8 lanes),
+           factor's largest and at an average forward level, 8 lanes;
+           ell_sweep and ell_sweep_multi, 8 columns, at the library
+           path's largest and an average forward level, against
+           torch.sparse.mm on that level's live slots in CSR),
            beside the least time the card
            could take (bytes over 3.35 TB/s, or operations over the peak
            rate, whichever is larger: fp32's 67 TFLOP/s for the solver's
@@ -93,8 +110,9 @@ The build phase also prints the number of HGMMA (wgmma) instructions in
 the attention library's SASS, where cuobjdump exists.
 
 The last three lines are the kernel table as JSON (one row per kernel,
-two for ell_sweep_fleet — the largest forward level, then an average one
-— and two for flash_attention — the qwen3-14b shape, then the
+two for each level sweep — ell_sweep_fleet, ell_sweep and
+ell_sweep_multi: the largest forward level, then an average one — and
+two for flash_attention — the qwen3-14b shape, then the
 recurrentgemma-2b one), the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -544,8 +562,8 @@ def phase_library(dev, main):
         f"solve 8 rhs {t_solve8:.2f}s iters={it8.min()}..{it8.max()} (main "
         f"path {main['t_solve8']:.2f}s, {m8.min()}..{m8.max()}) max relres="
         f"{float(r8.relres.max()):.3e}")
-    log(f"[library] launches: {launches}; ell_spmv per 1-rhs apply "
-        f"{launches.get('ell_spmv', 0) / (it1 + 1):.1f}")
+    log(f"[library] launches: {launches}; ell_sweep per 1-rhs apply "
+        f"{launches.get('ell_sweep', 0) / (it1 + 1):.1f}")
     log("[library] lane 0 of the 8-rhs solve == the same rhs solved alone, "
         "bit for bit (x and iterations)")
     check(bool(r1.converged) and bool(r8.converged.all()),
@@ -557,34 +575,124 @@ def phase_library(dev, main):
         rr = true_relres(g, x, b)
         check(rr < 1e-4, f"library path: true residual {rr:.2e} of a "
                          f"converged lane")
-    for name in ("ell_spmv", "ell_spmv_multi"):
+    for name in ("ell_sweep", "ell_sweep_multi"):
         check(launches.get(name, 0) > 0,
               f"library path never launched the {name} kernel")
-    return dict(factor=f, launches=launches, t_factor=t_factor,
-                t_prec=t_prec, t_solve1=t_solve1, t_solve8=t_solve8)
+    for name in ("ell_spmv", "ell_spmv_multi"):
+        check(launches.get(name, 0) == 0,
+              f"library path launched the full-row {name} kernel")
+    fwd, bwd, full_row = library_against_full_row(dev, f, apply)
+    return dict(factor=f, launches=launches, full_row_launches=full_row,
+                fwd=fwd, bwd=bwd, t_factor=t_factor, t_prec=t_prec,
+                t_solve1=t_solve1, t_solve8=t_solve8)
 
 
-def slab_rows(sched, which: str):
-    """(lo, hi) of the schedule's largest level slab, or of a small ragged
-    one (2 to 63 rows, not a multiple of 8; else the smallest)."""
+def library_against_full_row(dev, f, apply):
+    """A 1-rhs and an 8-rhs apply of the library path's preconditioner
+    (``apply``, the level sweeps), each bitwise equal to the per-level
+    full-row composition the sweeps replaced (ops.trisolve_panels_full:
+    ell_spmv / ell_spmv_multi over each whole padded slab, then
+    y[rows] -= Y) on the factor's schedules built anew, on the same input.
+    Returns the schedules and the launch counts over the two full-row
+    applies (reset just before; comparison launches, not the path's)."""
+    import torch
+    from repro_torch.core.trisolve import build_schedules_device
+    from repro_torch.kernels import ops, runtime
+    fwd, bwd = build_schedules_device(f)
+    D = f.to_device().D
+    # the D^-1 scale of make_preconditioner_from_schedules
+    dinv = torch.where(D > 0, 1.0 / torch.where(D > 0, D, 1.0), 0.0)
+
+    def full_row(r):
+        y = ops.trisolve_panels_full(fwd, r)
+        return ops.trisolve_panels_full(
+            bwd, y * (dinv if y.dim() == 1 else dinv[:, None]), flip=True)
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    runs = [torch.randn(shape, generator=gen, device=dev)
+            for shape in ((f.n,), (f.n, 8))]
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    for r in runs:
+        tag = "1-rhs" if r.dim() == 1 else "8-rhs"
+        t0 = time.time()
+        new = apply(r)
+        torch.cuda.synchronize()
+        t_new = time.time() - t0
+        t0 = time.time()
+        old = full_row(r)
+        torch.cuda.synchronize()
+        t_old = time.time() - t0
+        check(bitwise_equal(new, old),
+              f"library path: the {tag} apply through the level sweeps "
+              f"differs from the full-row composition")
+        log(f"[library] {tag} apply: level sweeps {t_new * 1e3:.2f} ms == "
+            f"full-row composition {t_old * 1e3:.2f} ms, bit for bit")
+    launches = dict(runtime.LAUNCHES)
+    log(f"[library] launches over the two applies: {launches}")
+    return fwd, bwd, launches
+
+
+def pick_level(sched, which: str) -> int:
+    """A level >= 1 of the schedule: the one with the most rows
+    ("largest"), the one whose row count is nearest the mean over levels
+    1 .. ("average"), or a small ragged one ("ragged": 2 to 63 rows, not a
+    multiple of 8; else the smallest)."""
     import numpy as np
     sizes = np.diff(sched.row_ptr)
     lv = np.arange(sizes.size)
     live = (lv >= 1) & (sizes > 0)
     if which == "largest":
-        pick = int(lv[live][np.argmax(sizes[live])])
-    else:
-        ragged = live & (sizes > 1) & (sizes < 64) & (sizes % 8 != 0)
-        pool = lv[ragged] if ragged.any() else lv[live]
-        pick = int(pool[np.argmin(sizes[pool])])
-    return int(sched.row_ptr[pick]), int(sched.row_ptr[pick + 1])
+        return int(lv[live][np.argmax(sizes[live])])
+    if which == "average":
+        pool = lv[live]
+        return int(pool[np.argmin(np.abs(sizes[pool] - sizes[pool].mean()))])
+    ragged = live & (sizes > 1) & (sizes < 64) & (sizes % 8 != 0)
+    pool = lv[ragged] if ragged.any() else lv[live]
+    return int(pool[np.argmin(sizes[pool])])
+
+
+def slab_rows(sched, which: str):
+    """(lo, hi) of the slab of pick_level(sched, which)."""
+    lv = pick_level(sched, which)
+    return int(sched.row_ptr[lv]), int(sched.row_ptr[lv + 1])
+
+
+def level_plan(sched, lv: int):
+    """The sweep plan of level ``lv`` alone (one launch)."""
+    plan = sched.plan[sched.plan[:, 0] == sched.row_ptr[lv]]
+    check(plan.shape[0] == 1, f"level {lv} is not in the sweep plan")
+    return plan
+
+
+def fleet_lane_of_level(sched, lv, y):
+    """Level ``lv`` swept by ell_sweep_fleet, one lane, on a row-indexed
+    copy of the level's slab at the panel's full width (G =
+    group_width(K)): returns the swept copy of ``y``."""
+    import torch
+    from repro_torch.kernels import spmv
+    dev = y.device
+    lo, hi = int(sched.row_ptr[lv]), int(sched.row_ptr[lv + 1])
+    rows = sched.row_ids[lo:hi].long()
+    cols = torch.zeros((1, sched.n, sched.K), dtype=torch.int32, device=dev)
+    vals = torch.zeros((1, sched.n, sched.K), device=dev)
+    lens = torch.zeros((1, sched.n), dtype=torch.int32, device=dev)
+    cols[0, rows], vals[0, rows] = sched.cols[lo:hi], sched.vals[lo:hi]
+    lens[0, rows] = sched.row_len[lo:hi]
+    starts = torch.as_tensor(sched.row_ptr.astype("int32"), device=dev)[None]
+    only = [0] * sched.n_levels
+    only[lv] = hi - lo
+    out = y[None].clone()
+    spmv.ell_sweep_fleet(cols, vals, lens, sched.row_ids[None].contiguous(),
+                         starts, torch.zeros(1, dtype=torch.int32, device=dev),
+                         out, only)
+    return out[0]
 
 
 def phase_slabs(dev, lib):
     import torch
-    from repro_torch.core.trisolve import build_schedules_device
     from repro_torch.kernels import spmv
-    fwd, bwd = build_schedules_device(lib["factor"])
+    fwd, bwd = lib["fwd"], lib["bwd"]
     log(f"[slabs] device schedules: fwd levels={fwd.n_levels} K={fwd.K}, "
         f"bwd levels={bwd.n_levels} K={bwd.K}")
     n = fwd.n
@@ -621,7 +729,70 @@ def phase_slabs(dev, lib):
                   f"{tag} slab")
     log("[slabs] ell_spmv == ell_spmv_fleet's lane and each ell_spmv_multi "
         "column == ell_spmv of that column, bit for bit, on every slab")
-    return dict(fwd=fwd, bwd=bwd, worst=worst)
+    sweep_worst = sweep_slabs(dev, fwd)
+    return dict(fwd=fwd, bwd=bwd, worst={**worst, **sweep_worst})
+
+
+def sweep_slabs(dev, fwd):
+    """ell_sweep and ell_sweep_multi at the largest, an average and a small
+    ragged forward level, one level alone each: against their plain
+    versions (relative error <= 1e-5 over the level's rows), ell_sweep
+    bitwise against ell_sweep_fleet's lane and against ell_spmv followed
+    by y[rows] -= Y, and each ell_sweep_multi column (B = 8 and B = 11)
+    bitwise against ell_sweep of that column.  Returns each kernel's
+    largest |error| against its plain version."""
+    import torch
+    from repro_torch.kernels import spmv
+    gen = torch.Generator(device=dev).manual_seed(2)
+    args = (fwd.cols, fwd.vals, fwd.row_len, fwd.row_ids)
+    worst = {"ell_sweep": 0.0, "ell_sweep_multi": 0.0}
+    for which in ("largest", "average", "ragged"):
+        lv = pick_level(fwd, which)
+        plan = level_plan(fwd, lv)
+        lo, hi = int(fwd.row_ptr[lv]), int(fwd.row_ptr[lv + 1])
+        rows = fwd.row_ids[lo:hi].long()
+        other = torch.ones(fwd.n, dtype=torch.bool, device=dev)
+        other[rows] = False
+        for B in (None, 8, 11):
+            name = "ell_sweep" if B is None else "ell_sweep_multi"
+            y0 = torch.randn((fwd.n,) if B is None else (fwd.n, B),
+                             generator=gen, device=dev)
+            got, want = y0.clone(), y0.clone()
+            getattr(spmv, name)(*args, got, plan)
+            spmv.ell_sweep_plain(*args, want, plan)
+            torch.cuda.synchronize()
+            err = float((got[rows] - want[rows]).abs().max())
+            rel = err / max(float(want[rows].abs().max()), 1e-30)
+            check(rel <= 1e-5, f"{name} B={B} {which} forward level {lv}: "
+                               f"relative error {rel:.2e}")
+            check(bitwise_equal(got[other], y0[other]),
+                  f"{name} {which} level {lv} changed rows of other levels")
+            worst[name] = max(worst[name], err)
+            log(f"[slabs] {name} B={B or 1} {which} forward level {lv} "
+                f"rows={hi - lo} level_k={int(fwd.level_k[lv])}: max abs "
+                f"err {err:.3e} (relative {rel:.2e}) vs its plain version")
+            if B is None:
+                lane = fleet_lane_of_level(fwd, lv, y0)
+                check(bitwise_equal(got, lane),
+                      f"ell_sweep differs from ell_sweep_fleet's lane at "
+                      f"the {which} forward level {lv}")
+                full = y0.clone()
+                full[rows] -= spmv.ell_spmv(fwd.cols[lo:hi], fwd.vals[lo:hi],
+                                            y0)
+                check(bitwise_equal(got, full),
+                      f"ell_sweep differs from ell_spmv + commit at the "
+                      f"{which} forward level {lv}")
+            else:
+                for b in range(B):
+                    col = y0[:, b].contiguous()
+                    spmv.ell_sweep(*args, col, plan)
+                    check(bitwise_equal(got[:, b], col),
+                          f"ell_sweep_multi B={B} column {b} differs from "
+                          f"ell_sweep at the {which} forward level {lv}")
+    log("[slabs] ell_sweep == ell_sweep_fleet's lane == ell_spmv + commit, "
+        "and each ell_sweep_multi column (B = 8, 11) == ell_sweep of that "
+        "column, bit for bit, at every level")
+    return worst
 
 
 # (tag, B, q heads, kv heads, S, d, dtype, causal) of the [attention] phase;
@@ -845,6 +1016,7 @@ def slab_rows_timing(dev, slabs, lib):
             replaces="src/repro/kernels/spmv.py:"
                      + ("65" if name == "ell_spmv" else "139"),
             launches=lib["launches"].get(name, 0),
+            comparison_launches=lib["full_row_launches"].get(name, 0),
             max_abs_err=slabs["worst"][name], ms=ms, plain_ms=plain_ms,
             **bound(nbytes, 2 * B * nnz), library_ms=lib_ms,
             shape=f"R={R} K={K} B={B} nnz={nnz} x_bytes={x_bytes} "
@@ -853,10 +1025,84 @@ def slab_rows_timing(dev, slabs, lib):
     return rows
 
 
+def sweep_rows_timing(dev, slabs, lib):
+    """Timing rows of ell_sweep and ell_sweep_multi (8 columns) at the
+    library path's largest and an average forward level, one level alone
+    per launch, with torch.sparse.mm on the level's live slots in CSR as
+    the library call (the product alone, without the commit)."""
+    import torch
+    from repro_torch.kernels import spmv
+    fwd = slabs["fwd"]
+    n = fwd.n
+    args = (fwd.cols, fwd.vals, fwd.row_len, fwd.row_ids)
+    rows_out = []
+    for which in ("largest", "average"):
+        lv = pick_level(fwd, which)
+        plan = level_plan(fwd, lv)
+        lo, hi = int(fwd.row_ptr[lv]), int(fwd.row_ptr[lv + 1])
+        R, k = hi - lo, int(fwd.level_k[lv])
+        rows = fwd.row_ids[lo:hi].long()
+        c, v = fwd.cols[lo:hi, :k], fwd.vals[lo:hi, :k]
+        lens = fwd.row_len[lo:hi]
+        live_mask = torch.arange(k, device=dev)[None, :] < lens[:, None]
+        live = int(lens.sum())
+        crow = torch.zeros(R + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(lens.long(), 0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            csr = torch.sparse_csr_tensor(crow, c[live_mask].long(),
+                                          v[live_mask], size=(R, n),
+                                          check_invariants=False)
+        for name, B in (("ell_sweep", 1), ("ell_sweep_multi", 8)):
+            kernel = getattr(spmv, name)
+            y = torch.randn((n,) if B == 1 else (n, B), device=dev)
+            y0 = y.clone()
+            yp = y.clone()
+            kernel(*args, y, plan)
+            y_lib = torch.sparse.mm(csr, y0.reshape(n, B)).reshape(R, B)
+            torch.cuda.synchronize()
+            s_k = (y0[rows] - y[rows]).reshape(R, B)
+            # the sweep returns y - S, rounded once: within a few ulps of
+            # max(|y|, |S|) of the product S
+            scale = max(float(y0[rows].abs().max()),
+                        float(y_lib.abs().max()), 1e-30)
+            lib_rel = float((s_k - y_lib).abs().max()) / scale
+            check(lib_rel <= 1e-4, f"torch.sparse.mm disagrees with {name} "
+                                   f"at the {which} level ({lib_rel:.2e})")
+            kern = lambda: kernel(*args, y, plan)                # noqa: E731
+            plain = lambda: spmv.ell_sweep_plain(*args, yp, plan)  # noqa: E731
+            y_in = y0.reshape(n, B)
+            lib_call = lambda: torch.sparse.mm(csr, y_in)        # noqa: E731
+            ms = time_ms(kern)
+            device_ms = device_ms_per_launch(kern)
+            plain_ms = time_ms(plain, reps=3)
+            lib_ms = time_ms(lib_call)
+            # live slots (index and value) read once for all columns, the
+            # rows' row_ids and row_len, the y sectors the slots gather,
+            # the level's rows of y read and written
+            y_bytes = gathered_bytes(c, v, B)
+            nbytes = live * 8 + R * 8 + y_bytes + 2 * R * B * 4
+            rows_out.append(dict(
+                name=name, route="cuda",
+                source="src/repro_torch/csrc/"
+                       + ("ell_spmv.cu" if B == 1 else "ell_spmv_multi.cu"),
+                replaces="src/repro/kernels/spmv.py:"
+                         + ("65" if B == 1 else "139"),
+                launches=lib["launches"].get(name, 0),
+                max_abs_err=slabs["worst"][name], ms=ms, plain_ms=plain_ms,
+                **bound(nbytes, 2 * B * live), library_ms=lib_ms,
+                shape=f"{which} forward level {lv}: B={B} rows={R} "
+                      f"level_k={k} K={fwd.K} live_slots={live} "
+                      f"y_bytes={y_bytes}",
+                device_ms=device_ms))
+    log_rows(rows_out)
+    return rows_out
+
+
 def apply_timing(dev, main, slabs):
     """One preconditioner apply of each path on the same factor, 1 and 8
-    right-hand sides: the main path's masked fleet sweeps and the library
-    path's level slabs."""
+    right-hand sides: the main path's fleet level sweeps and the library
+    path's level-slab sweeps."""
     import torch
     from repro_torch.core.trisolve import make_preconditioner_from_schedules
     from repro_torch.kernels import runtime
@@ -1117,6 +1363,7 @@ def main() -> None:
     attn = phase_attention(dev)
     kernels = phase_timing(dev, main_res, spmv_errs)
     kernels += slab_rows_timing(dev, slabs, lib_res)
+    kernels += sweep_rows_timing(dev, slabs, lib_res)
     kernels += attention_timing(dev, attn)
     apply_timing(dev, main_res, slabs)
     log(f"[done] all phases passed in {time.time() - t_start:.1f}s on {card}")

@@ -11,7 +11,8 @@ in-neighbours); each level is one data-parallel sweep.  Three builders:
   reads in place;
 * ``build_schedules_device`` — the library path (``make_preconditioner``):
   level-sorted ELL panels (:class:`DeviceSchedule`) whose level slabs the
-  SpMV kernels read in place, one launch per level.
+  sweep kernels read in place, one launch per level, all issued by one
+  C call per triangular solve.
 """
 from __future__ import annotations
 
@@ -230,11 +231,12 @@ class DeviceSchedule:
     """Level schedule with rows packed into **level-sorted** ELL panels,
     built on the device.  ``row_ids`` lists rows sorted by (level, row);
     level ``lv`` owns rows ``row_ids[row_ptr[lv]:row_ptr[lv+1]]`` and the
-    same row range of ``cols``/``vals``, a contiguous slab that the SpMV
-    kernels read in place.  Only ``row_ptr`` and ``n_levels`` live on the
-    host (loop bounds).  The backward schedule lives in **flipped** index
-    space (solve row ``i`` is vertex ``n-1-i``), unlike
-    :class:`PackedSchedule`."""
+    same row range of ``cols``/``vals``, a contiguous slab that the sweep
+    kernels read in place.  Row ``r`` is left-packed: its first
+    ``row_len[r]`` slots are live.  ``row_ptr``, ``level_k`` and
+    ``plan`` (the sweep's launches) live on the host.  The backward
+    schedule lives in **flipped** index space (solve row ``i`` is vertex
+    ``n-1-i``), unlike :class:`PackedSchedule`."""
 
     n: int
     n_levels: int
@@ -244,6 +246,18 @@ class DeviceSchedule:
     cols: torch.Tensor      # int32[n, K] — in-edge sources, 0-padded
     vals: torch.Tensor      # f32[n, K]   — in-edge values, 0-padded
     level_of: torch.Tensor  # int32[n]
+    row_len: torch.Tensor   # int32[n] — live in-edges of each sorted row
+    level_k: np.ndarray     # int64[n_levels] — longest live row per level
+    plan: np.ndarray        # int32[L, 3] — (slab offset, rows, level_k)
+                            # of each level >= 1 with rows, in order
+
+
+def _sweep_plan(row_ptr: np.ndarray, level_k: np.ndarray) -> np.ndarray:
+    """The sweep's launches: (slab offset, row count, longest live row) of
+    each level ``lv >= 1`` with rows (level-0 rows have no in-edges)."""
+    lv = np.flatnonzero(np.diff(row_ptr)[1:] > 0) + 1
+    return np.stack([row_ptr[lv], row_ptr[lv + 1] - row_ptr[lv],
+                     level_k[lv]], axis=1).astype(np.int32)
 
 
 def _propagate_levels(dst: torch.Tensor, src: torch.Tensor, *,
@@ -273,7 +287,8 @@ def _pack_ell_panels(dst, src, val, level, *, n: int, K: int):
 def _schedule_from_edges_device(n: int, dst: torch.Tensor, src: torch.Tensor,
                                 val: torch.Tensor) -> DeviceSchedule:
     """Device schedule from COO solve edges (``dst`` reads ``src``).  Host
-    work is O(n_levels) slicing metadata; two host reads (K, levels)."""
+    work is O(n) metadata; two host reads (K; the sorted levels with the
+    live row lengths)."""
     dev = val.device
     if dst.shape[0] == 0:
         return DeviceSchedule(
@@ -282,18 +297,30 @@ def _schedule_from_edges_device(n: int, dst: torch.Tensor, src: torch.Tensor,
             row_ptr=np.array([0, n], np.int64),
             cols=torch.zeros((n, 1), dtype=torch.int32, device=dev),
             vals=torch.zeros((n, 1), dtype=torch.float32, device=dev),
-            level_of=torch.zeros(n, dtype=torch.int32, device=dev))
+            level_of=torch.zeros(n, dtype=torch.int32, device=dev),
+            row_len=torch.zeros(n, dtype=torch.int32, device=dev),
+            level_k=np.zeros(1, np.int64),
+            plan=np.zeros((0, 3), np.int32))
     dst, src = dst.to(I64), src.to(I64)
     level = _propagate_levels(dst, src, n=n)
-    K = max(int(torch.bincount(dst, minlength=n).max()), 1)
+    indeg = torch.bincount(dst, minlength=n).to(torch.int32)
+    K = max(int(indeg.max()), 1)
     row_ids, cols, vals = _pack_ell_panels(dst, src, val, level, n=n, K=K)
-    level_h = level.cpu().numpy()
-    n_levels = int(level_h.max()) + 1
-    row_ptr = np.searchsorted(np.sort(level_h),
+    row_len = indeg[row_ids.long()]
+    # one read carries the sorted levels (row_ptr) and the row lengths
+    # (each level's longest row)
+    level_h, len_h = torch.stack(
+        (level[row_ids.long()], row_len)).cpu().numpy().astype(np.int64)
+    n_levels = int(level_h[-1]) + 1
+    row_ptr = np.searchsorted(level_h,
                               np.arange(n_levels + 1)).astype(np.int64)
+    level_k = np.zeros(n_levels, np.int64)
+    held = np.flatnonzero(np.diff(row_ptr) > 0)
+    level_k[held] = np.maximum.reduceat(len_h, row_ptr[held])
     return DeviceSchedule(n=n, n_levels=n_levels, K=K, row_ids=row_ids,
                           row_ptr=row_ptr, cols=cols, vals=vals,
-                          level_of=level)
+                          level_of=level, row_len=row_len, level_k=level_k,
+                          plan=_sweep_plan(row_ptr, level_k))
 
 
 def build_schedules_device(f: Union[ACFactor, DeviceFactor], device=None
@@ -318,7 +345,7 @@ def build_schedules_device(f: Union[ACFactor, DeviceFactor], device=None
 def make_ell_solver(sched: DeviceSchedule, flip: bool = False):
     """Unit-triangular solve over a schedule's level slabs for a single
     rhs ``(n,)`` or a block ``(n, nrhs)``: ``ops.trisolve_panels``, one
-    SpMV kernel launch per non-empty level."""
+    sweep kernel launch per non-empty level."""
     return partial(ops.trisolve_panels, sched, flip=flip)
 
 

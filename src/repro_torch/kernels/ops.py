@@ -2,8 +2,10 @@
 kernel, layout conversion, and the triangular solves built on the SpMV
 kernels — over the level rows of row-indexed fleet panels
 (``trisolve_fleet``), level-masked over row-indexed panels
-(``trisolve_masked``, ``trisolve_fleet_masked``) and level by level over
-level-sorted slabs (``trisolve_panels``, ``trisolve_levels``).
+(``trisolve_masked``, ``trisolve_fleet_masked``), over the level slabs of
+a level-sorted panel (``trisolve_panels``; ``trisolve_panels_full``, the
+full-row composition it is held against) and over numpy slabs
+(``trisolve_levels``).
 """
 from __future__ import annotations
 
@@ -186,12 +188,26 @@ def trisolve_masked(cols, vals, level_of, y, *, n_levels: int
 def trisolve_panels(sched, b: torch.Tensor, flip: bool = False
                     ) -> torch.Tensor:
     """Unit-triangular solve over a ``trisolve.DeviceSchedule``'s
-    level-sorted ELL panels: level ``lv``'s rows are the slab
-    ``row_ptr[lv]:row_ptr[lv+1]`` of ``cols``/``vals``, read in place by
-    the SpMV kernel (``ell_spmv`` for ``b`` of shape ``(n,)``,
-    ``ell_spmv_multi`` for ``(n, B)``).  Level 0 and empty levels are
-    skipped; rows are unique within a level, so the update is
-    deterministic.  ``b`` is not modified."""
+    level-sorted ELL panels: one sweep (``ell_sweep`` for ``b`` of shape
+    ``(n,)``, ``ell_sweep_multi`` for ``(n, B)``) over the schedule's
+    ``plan``, one kernel launch per non-empty level ``lv >= 1``, each
+    updating the rows ``row_ids[row_ptr[lv]:row_ptr[lv+1]]`` in place over
+    their live slots.  Equal to :func:`trisolve_panels_full` bit for bit;
+    ``b`` is not modified."""
+    y = _working_copy(b, flip)
+    sweep = _spmv.ell_sweep if y.dim() == 1 else _spmv.ell_sweep_multi
+    sweep(sched.cols, sched.vals, sched.row_len, sched.row_ids, y,
+          sched.plan)
+    return torch.flip(y, (0,)) if flip else y
+
+
+def trisolve_panels_full(sched, b: torch.Tensor, flip: bool = False
+                         ) -> torch.Tensor:
+    """The per-level composition that :func:`trisolve_panels` replaced:
+    level ``lv``'s slab ``row_ptr[lv]:row_ptr[lv+1]`` of ``cols``/``vals``
+    (all K slots) through ``ell_spmv`` / ``ell_spmv_multi``, then
+    ``y[rows] -= Y``.  Level 0 and empty levels are skipped.  Kept as the
+    composition the sweep is held against."""
     y = _working_copy(b, flip)
     kernel = ell_spmv if y.dim() == 1 else ell_spmv_multi
     ptr = sched.row_ptr

@@ -64,8 +64,10 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def count_launch(name: str) -> None:
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+def count_launch(name: str, n: int = 1) -> None:
+    """Add ``n`` launches of ``name`` (a C entry point that loops over
+    levels reports how many it made)."""
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + n
 
 
 def reset_launches() -> None:

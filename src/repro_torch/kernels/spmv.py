@@ -23,18 +23,30 @@ versions.  A CPU tensor takes the plain version, a CUDA tensor the kernel
   ``Y[i, b] = Σ_k vals[i, k] · x[cols[i, k], b]``, each (col, val) pair
   read once for all B columns.  Replaces ``ell_spmv_multi_pallas``.
   Source: ``csrc/ell_spmv_multi.cu``.
+* ``ell_sweep`` / ``ell_sweep_multi`` — one triangular solve over the
+  level slabs of a level-sorted panel (the library path's
+  ``DeviceSchedule``), in place on ``y`` ``[n]`` / ``[n, B]``: for each
+  level of the plan, ``y[i] -= Σ_{k < row_len[r]} vals[r, k] ·
+  y[cols[r, k]]`` for the slab rows ``r`` of that level, ``i =
+  row_ids[r]``.  One launch per level, all issued by one C call; the
+  redesign of ``ell_spmv_pallas`` / ``ell_spmv_multi_pallas`` for the
+  library path, in the same sources as ``ell_spmv`` / ``ell_spmv_multi``.
+  A committed row equals ``ell_spmv`` / ``ell_spmv_multi`` followed by
+  ``y[rows] -= Y`` bit for bit.
 
-All three kernels sum a row in one order that depends on K alone
-(``csrc/ell_row.cuh``), so ``ell_spmv`` equals a lane of
-``ell_spmv_fleet`` and a column of ``ell_spmv_multi`` bit for bit.  The
-plain versions are one function that sums K left to right by fused
-multiply-adds, as XLA:CPU sums the reference's rows, so they too agree
-with each other bit for bit.
+All these kernels sum a row in one order that depends on K alone
+(``csrc/ell_row.cuh``; the sweeps over a level's longest live row, which
+gives the same bits), so ``ell_spmv`` equals a lane of ``ell_spmv_fleet``
+and a column of ``ell_spmv_multi`` bit for bit.  The plain versions are
+one function that sums K left to right by fused multiply-adds, as
+XLA:CPU sums the reference's rows, so they too agree with each other bit
+for bit.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import runtime
@@ -236,3 +248,97 @@ def ell_spmv_multi(cols, vals, x) -> torch.Tensor:
     runtime.check_launch("ell_spmv_multi", err)
     runtime.count_launch("ell_spmv_multi")
     return y
+
+
+def _check_sweep(name, cols, vals, row_len, row_ids, y, plan, y_ndim
+                 ) -> None:
+    """The level sweep's contract, for the kernel and the plain version:
+    cols/vals ``[R, K]``, row_len/row_ids ``[R]``, y ``[R]`` or ``[R, B]``,
+    and plan a host int32 array ``[L, 3]`` of (slab offset, row count,
+    longest live row) whose slabs lie inside the panel and whose longest
+    rows fit in K."""
+    R, K = cols.shape if cols.dim() == 2 else (-1, -1)
+    if (cols.dim() != 2 or vals.shape != cols.shape
+            or row_len.shape != (R,) or row_ids.shape != (R,)
+            or y_ndim not in (1, 2) or y.dim() != y_ndim
+            or y.shape[0] != R):
+        raise ValueError(f"{name}: cols/vals [R, K], row_len/row_ids [R] "
+                         f"and y [R{', B' if y_ndim == 2 else ''}] must "
+                         f"agree")
+    if not (isinstance(plan, np.ndarray) and plan.dtype == np.int32
+            and plan.ndim == 2 and plan.shape[1] == 3
+            and plan.flags.c_contiguous):
+        raise ValueError(f"{name}: plan must be a C-contiguous int32 host "
+                         f"array [L, 3]")
+    lo, count, k = plan.T.astype(np.int64)
+    if (lo < 0).any() or (count < 0).any() or (lo + count > R).any() \
+            or (k < 0).any() or (k > K).any():
+        raise ValueError(f"{name}: a plan entry lies outside the [{R}, {K}] "
+                         f"panel")
+
+
+def ell_sweep_plain(cols, vals, row_len, row_ids, y, plan) -> None:
+    """The plain version of ``ell_sweep`` (y ``[n]``) and of
+    ``ell_sweep_multi`` (y ``[n, B]``), on the same arguments and in
+    place: level by level, the level's rows gathered, summed as
+    :func:`ell_spmv_plain` sums them over the level's longest live row
+    (the slots past a row's own length hold 0.0 and add exactly nothing),
+    subtracted and scattered back."""
+    _check_sweep("ell_sweep", cols, vals, row_len, row_ids, y, plan,
+                 y.dim())
+    for lo, count, k in plan.tolist():
+        if count:
+            hi = lo + count
+            rows = row_ids[lo:hi].long()
+            y[rows] = y[rows] - ell_spmv_plain(cols[lo:hi, :k],
+                                               vals[lo:hi, :k], y)
+
+
+ell_sweep_multi_plain = ell_sweep_plain
+
+
+def _sweep(name, y_ndim, cols, vals, row_len, row_ids, y, plan) -> None:
+    """Check once and make the one C call of a sweep, which launches one
+    kernel per level with rows; counts what it launched."""
+    dev = y.device
+    runtime.require(cols, "cols", torch.int32, 2, dev)
+    runtime.require(vals, "vals", torch.float32, 2, dev)
+    runtime.require(row_len, "row_len", torch.int32, 1, dev)
+    runtime.require(row_ids, "row_ids", torch.int32, 1, dev)
+    runtime.require(y, "y", torch.float32, y_ndim, dev)
+    _check_sweep(name, cols, vals, row_len, row_ids, y, plan, y_ndim)
+    ints = (cols.shape[1],) + tuple(y.shape[1:])      # K, then B
+    source = "ell_spmv" if y_ndim == 1 else "ell_spmv_multi"
+    launched = _launcher(source, 6, 1 + len(ints), name)(
+        cols.data_ptr(), vals.data_ptr(), row_len.data_ptr(),
+        row_ids.data_ptr(), y.data_ptr(), plan.ctypes.data, plan.shape[0],
+        *ints, runtime.stream_ptr(y))
+    if launched < 0:
+        runtime.check_launch(name, -launched)
+    runtime.count_launch(name, launched)
+
+
+def ell_sweep(cols, vals, row_len, row_ids, y, plan) -> None:
+    """One unit-triangular solve over a level-sorted panel, in place on
+    ``y`` float32 ``[n]``: cols int32 / vals float32 ``[n, K]`` (row ``r``
+    holds the in-edges of row ``row_ids[r]``, left-packed), row_len
+    (live slots) and row_ids int32 ``[n]``, plan the host int32 array
+    ``[L, 3]`` of (slab offset, row count, longest live row) of each level
+    to sweep, in order.  One kernel launch per level with rows, all from
+    one C call; the tensors are checked once, not per level."""
+    if y.device.type == "cpu":
+        return ell_sweep_plain(cols, vals, row_len, row_ids, y, plan)
+    if y.device.type != "cuda":
+        raise ValueError(f"ell_sweep: unsupported device {y.device}")
+    _sweep("ell_sweep", 1, cols, vals, row_len, row_ids, y, plan)
+
+
+def ell_sweep_multi(cols, vals, row_len, row_ids, y, plan) -> None:
+    """:func:`ell_sweep` for a block ``y`` float32 ``[n, B]`` (row-major):
+    each live (col, val) pair read once for up to 8 columns; column ``b``
+    equals ``ell_sweep`` of that column bit for bit."""
+    if y.device.type == "cpu":
+        return ell_sweep_multi_plain(cols, vals, row_len, row_ids, y, plan)
+    if y.device.type != "cuda":
+        raise ValueError(f"ell_sweep_multi: unsupported device {y.device}")
+    _sweep("ell_sweep_multi", 2, cols, vals, row_len, row_ids, y, plan)

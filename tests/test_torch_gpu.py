@@ -195,7 +195,8 @@ def test_ell_spmv_multi_kernel(dev, B):
 def test_library_path_on_card(dev):
     """make_preconditioner → laplacian_pcg / laplacian_pcg_batched on the
     card: converges as on the CPU, every lane within 1e-4 of the CPU's
-    solution, and through the two kernels."""
+    solution, and through the two sweep kernels (the full-row slab
+    kernels do not launch)."""
     from repro_torch.core.column_math import key_from_seed
     from repro_torch.core.parac import factorize_wavefront
     from repro_torch.core.pcg import laplacian_pcg, laplacian_pcg_batched
@@ -215,7 +216,9 @@ def test_library_path_on_card(dev):
                                    maxiter=300)
         res[str(d)] = r1, rb, dict(runtime.LAUNCHES)
     (c1, cb, _), (g1, gb, launches) = res["cpu"], res[str(dev)]
-    assert launches["ell_spmv"] > 0 and launches["ell_spmv_multi"] > 0
+    assert launches["ell_sweep"] > 0 and launches["ell_sweep_multi"] > 0
+    assert launches.get("ell_spmv", 0) == 0
+    assert launches.get("ell_spmv_multi", 0) == 0
     assert bool(g1.converged) and bool(gb.converged.all())
     for xc, xg in ((c1.x, g1.x), *zip(cb.x, gb.x)):
         xc, xg = xc.double(), xg.cpu().double()
@@ -223,6 +226,81 @@ def test_library_path_on_card(dev):
     # lane independence on the card: lane 0 of the block is its own
     # single-rhs solve bit for bit
     assert int(g1.iters) == int(gb.iters[0]) and torch.equal(g1.x, gb.x[0])
+
+
+def _library_schedules(dev, name):
+    """Forward and backward level-sorted schedules of a factor made on the
+    card: powerlaw_micro (panels 42 and 34 slots wide, so some levels give
+    a thread several live slots) or grid3d(8, 8, 8)."""
+    from repro_torch.core.column_math import key_from_seed
+    from repro_torch.core.parac import factorize_wavefront
+    from repro_torch.core.trisolve import build_schedules_device
+    from repro_torch.data import graphs
+    g = (graphs.SUITE_MICRO["powerlaw_micro"]() if name == "powerlaw_micro"
+         else graphs.grid3d(8, 8, 8, "contrast", seed=0))
+    f = factorize_wavefront(g, key_from_seed(7), chunk=64, device=dev)
+    return build_schedules_device(f)
+
+
+@pytest.mark.parametrize("B", [None, 1, 8, 11], ids=lambda B: f"B{B}")
+@pytest.mark.parametrize("name", ["powerlaw_micro", "grid3d_8"])
+def test_ell_sweep_kernels(dev, name, B):
+    """The library path's sweeps on the card: each level against the plain
+    version on the same input (relative 1e-5: the plain version sums a row
+    left to right, the kernel in ell_row.cuh's order), the whole solve
+    against the full-row composition (ell_spmv / ell_spmv_multi, then
+    y[rows] -= Y) bit for bit, one launch per planned level, and each
+    column of a block equal to ell_sweep of that column bit for bit."""
+    from repro_torch.kernels import ops
+    name_k = "ell_sweep" if B is None else "ell_sweep_multi"
+    kernel = spmv.ell_sweep if B is None else spmv.ell_sweep_multi
+    gen = torch.Generator(device=dev).manual_seed(B or 0)
+    for s, flip in zip(_library_schedules(dev, name), (False, True)):
+        args = (s.cols, s.vals, s.row_len, s.row_ids)
+        shape = (s.n,) if B is None else (s.n, B)
+        y0 = torch.randn(shape, generator=gen, device=dev)
+        y = y0.clone()
+        for p in range(s.plan.shape[0]):
+            one = s.plan[p:p + 1]
+            want = y.clone()
+            spmv.ell_sweep_plain(*args, want, one)
+            kernel(*args, y, one)
+            assert torch.allclose(y, want, rtol=1e-5, atol=1e-5)
+            y = want
+        before = runtime.LAUNCHES.get(name_k, 0)
+        got = ops.trisolve_panels(s, y0, flip=flip)
+        assert runtime.LAUNCHES[name_k] == before + s.plan.shape[0]
+        full = ops.trisolve_panels_full(s, y0, flip=flip)
+        assert torch.equal(got.view(torch.int32), full.view(torch.int32))
+        if B is not None:
+            for c in range(B):
+                col = ops.trisolve_panels(s, y0[:, c].contiguous(), flip=flip)
+                assert torch.equal(got[:, c].view(torch.int32),
+                                   col.view(torch.int32))
+
+
+def test_ell_sweep_wrappers_reject_bad_input(dev):
+    """Bad input raises before any launch: a host tensor among the card's,
+    a float64 y, an int64 plan, a plan entry past the panel."""
+    import numpy as np
+    s, _ = _library_schedules(dev, "powerlaw_micro")
+    args = (s.cols, s.vals, s.row_len, s.row_ids)
+    before = dict(runtime.LAUNCHES)
+    for fn, y in ((spmv.ell_sweep, torch.zeros(s.n, device=dev)),
+                  (spmv.ell_sweep_multi, torch.zeros((s.n, 3), device=dev))):
+        with pytest.raises(ValueError):
+            fn(s.cols, s.vals, s.row_len.cpu(), s.row_ids, y, s.plan)
+        with pytest.raises(TypeError):
+            fn(*args, y.double(), s.plan)
+        with pytest.raises(ValueError):
+            fn(*args, y, s.plan.astype(np.int64))
+        past = s.plan.copy()
+        past[-1, 0] = s.n
+        with pytest.raises(ValueError):
+            fn(*args, y, past)
+    assert runtime.LAUNCHES.get("ell_sweep", 0) == before.get("ell_sweep", 0)
+    assert (runtime.LAUNCHES.get("ell_sweep_multi", 0)
+            == before.get("ell_sweep_multi", 0))
 
 
 def test_fleet_lanes_do_not_depend_on_their_batch(dev):
