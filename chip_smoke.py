@@ -8,11 +8,20 @@ to a plain version while a GPU is present):
 
   build    nvcc-builds every kernel of the port from src/repro_torch/csrc,
            one process per source, all at once; prints the build time, the
-           compiler's register/spill report and the card's name and power
-           limit.
+           compiler's register/spill report per kernel (no sample_clique
+           variant may spill) and the card's name and power limit.
   clique   sample_clique kernel vs its plain version on the card: random
-           rows at W in {2, 32, 128, 512, 1024, 4096, 8192, 16384} and rows
-           gathered from a real engine round — all eight outputs bitwise equal.
+           rows at W in {2, 32, 128, 512, 1024, 4096, 8192, 16384}, at
+           W = 512 with fills in 1-32 and in 33-64 and with u = 0 and
+           weights over 33 decades, and rows gathered from a real engine
+           round — all eight outputs bitwise equal.  The fused round
+           (sample_clique_round) vs its plain composition (gather,
+           sample_clique_plain at width W, commit) on clones of the engine
+           state: every state tensor after the round (drop entries aside)
+           and the four edge outputs bitwise equal, at rounds of the 64^3
+           final attempt (fill_slack 256, W = 512: the first, the first
+           with a row of fill > 32, the first with fill > 64, the middle,
+           the last) and of a B = 2 batch.
   factor16 the card's factor of grid3d_uniform_16 (nnz-sort, key 0) vs the
            one the port builds on the CPU in this run — col_ptr, rows, vals,
            D, rounds and overflow equal bit for bit.
@@ -22,8 +31,15 @@ to a plain version while a GPU is present):
            fill_slack 32, strict), then solves of 1 and 8 right-hand sides
            (tol 1e-6, maxiter 500).  Every lane must converge, its true
            residual (float64 edge-list matvec on the host) must agree,
-           sample_clique and the level sweep ell_sweep_fleet must have
-           launched and the full-row ell_spmv_fleet must not.  Then one
+           sample_clique_round (once per engine round, fewer than 5,544)
+           and the level sweep ell_sweep_fleet must have launched and the
+           standalone sample_clique and the full-row ell_spmv_fleet must
+           not.  The factor runs under FactorProbe: each strict attempt
+           (slack, W, rounds run, round of the first dropped edge, wall
+           time; a discarded attempt must stop within 8 rounds of its
+           first overflow) and factor_s split into pools and uniforms,
+           engine rounds (host ms per round), finalize, schedules and
+           admission.  Then one
            1-lane and one 8-lane preconditioner apply of the handle's
            factor against the full-row composition the sweeps replaced
            (ell_spmv_fleet over the whole panel, then where(level == lv),
@@ -41,7 +57,8 @@ to a plain version while a GPU is present):
   library  the library path through the user entry points, launch counts
            reset just before and read just after: factorize_wavefront of
            the main path's graph with its settings and key (bit-identical to
-           the main path's handle factor), make_preconditioner (level-sorted
+           the main path's handle factor; its attempts and split printed
+           as in main), make_preconditioner (level-sorted
            device schedules), then laplacian_pcg (1 rhs) and
            laplacian_pcg_batched (the same 8 rhs as the main path), tol
            1e-6, maxiter 500.  Every lane must converge with a true residual
@@ -105,11 +122,19 @@ to a plain version while a GPU is present):
            wrapper's host work when that outlasts the kernel); and one
            preconditioner apply of each path on the same factor, with its
            device busy time from a torch.profiler trace of one apply.
+           sample_clique at the rows of the 64^3 final attempt's middle
+           round (R = 256, W = 512) and sample_clique_round on the same
+           round (the state restored before each call, outside the timed
+           span; device time of the kernel alone from a trace), against
+           its plain composition, with its bound over the live lanes
+           beside the padded-lane bound; and 16 consecutive engine rounds
+           from there: wall time, device busy time, idle share.
 
 The build phase also prints the number of HGMMA (wgmma) instructions in
 the attention library's SASS, where cuobjdump exists.
 
 The last three lines are the kernel table as JSON (one row per kernel,
+two for sample_clique — the standalone rows, then the fused round —,
 two for each level sweep — ell_sweep_fleet, ell_sweep and
 ell_sweep_multi: the largest forward level, then an average one — and
 two for flash_attention — the qwen3-14b shape, then the
@@ -195,9 +220,16 @@ def phase_build(runtime):
     log(f"[build] {len(KERNELS)} kernels built in {time.time() - t0:.1f}s "
         f"(nvcc, sm_90a, one process each, in parallel)")
     for name, rep in reports.items():
+        fn = ""
         for line in rep.splitlines():
+            if "Function properties for " in line:
+                fn = kernel_name(line.split("Function properties for ")[-1])
             if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+                log(f"[build] {name}: {fn}: {line.strip()}")
+            if name == "sample_clique" and "spill stores" in line:
+                check(line.strip().split("bytes spill stores")[0]
+                      .split(",")[-1].strip() == "0",
+                      f"sample_clique {fn} spills: {line.strip()}")
     for name in KERNELS:
         runtime.load(name)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -220,6 +252,29 @@ def phase_build(runtime):
     return card
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name from ptxas' mangled one: the identifiers it spells
+    and its integer template arguments (sample_clique_kernel<16>)."""
+    import re
+    names, args, i = [], [], 0
+    while i < len(mangled):
+        m = re.match(r"Li(\d+)E", mangled[i:])           # int template arg
+        if m:
+            args.append(m.group(1))
+            i += len(m.group(0))
+            continue
+        m = re.match(r"\d+", mangled[i:])                # <length><name>
+        if m:
+            start = i + len(m.group(0))
+            names.append(mangled[start:start + int(m.group(0))])
+            i = start + int(m.group(0))
+            continue
+        i += 1
+    name = next((x for x in names if "kernel" in x or "attention" in x),
+                names[-1] if names else mangled)
+    return name + (f"<{', '.join(args)}>" if args else "")
+
+
 def clique_rows(ids, ws, fill, u):
     """Kernel vs plain on the same rows; returns the max |diff| of the
     float outputs (0 when bitwise equal) or fails."""
@@ -236,22 +291,149 @@ def clique_rows(ids, ws, fill, u):
     return 0.0
 
 
-def phase_clique(dev):
+def clique_random_rows(dev):
+    """Random rows at W = 2 ... 16384 with uniform fills, at W = 512 with
+    fills drawn in 1-32 and in 33-64, and at W = 512 with u = 0 and weights
+    spread over 33 decades (thresholds equal to S1, sums that round)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    cases = [(W, "uniform fills") for W in (2, 32, 128, 512, 1024, 4096,
+                                            8192, 16384)]
+    cases += [(512, "fills 1-32"), (512, "fills 33-64"),
+              (512, "u = 0, weights 1e-30..1e3")]
+    for W, tag in cases:
+        R = 256 if W <= 1024 else 16
+        lo, hi = {"fills 1-32": (1, 32), "fills 33-64": (33, 64)}.get(
+            tag, (0, W))
+        fill = rng.integers(lo, hi + 1, R).astype(np.int32)
+        ids = rng.integers(0, max(2, W // 2), (R, W)).astype(np.int32)
+        ws = rng.uniform(0.1, 3.0, (R, W)).astype(np.float32)
+        u = rng.uniform(0.0, 1.0, (R, W)).astype(np.float32)
+        if tag.startswith("u = 0"):
+            fill = rng.integers(2, 65, R).astype(np.int32)
+            ids = rng.integers(0, 256, (R, W)).astype(np.int32)
+            ws = (10.0 ** rng.uniform(-30, 3, (R, W))).astype(np.float32)
+            u[:] = 0.0
+        clique_rows(*(torch.from_numpy(a).to(dev) for a in (ids, ws, fill,
+                                                             u)))
+        log(f"[clique] random rows R={R} W={W} {tag}: 8/8 outputs bitwise "
+            f"equal")
+
+
+def engine_clone(s):
+    return type(s)(*(t.clone() for t in s))
+
+
+def round_against_plain(s, st, tag: str):
+    """The fused round (sample_clique_round) against its plain composition
+    (gather, sample_clique_plain at width W, commit) on clones of the
+    engine state ``s`` at its next round: every state tensor after the
+    round bitwise equal (the drop entries, pool slot P and column n,
+    aside: the stages write them and nothing reads them) and the four
+    edge outputs bitwise equal.  Returns (live rows, rows with fill > 32,
+    rows with fill > 64)."""
+    import torch
+    from repro_torch.core import parac
+    from repro_torch.kernels import sample_clique as sc
+    cand, ok = parac._round_ready(s.elim, s.dep, parac._live(s, st),
+                                  chunk=st.chunk)
+    a, b = engine_clone(s), engine_clone(s)
+    got = sc.eliminate_round(a, st, cand, ok)
+    want = sc.eliminate_round_plain(b, st, cand, ok)
+    torch.cuda.synchronize()
+    for name, x, y in zip(a._fields, a, b):
+        if x.dim() == 2:
+            x, y = x[:, :-1], y[:, :-1]
+        check(bitwise_equal(x, y), f"fused round {tag}: state {name} "
+                                   f"differs from the plain composition")
+    for name, x, y in zip(got._fields, got, want):
+        check(bitwise_equal(x, y), f"fused round {tag}: edges {name} "
+                                   f"differ from the plain composition")
+    fill = torch.where(ok, torch.gather(s.col_fill, 1, cand), 0)
+    return (int(ok.sum()), int((fill > 32).sum()), int((fill > 64).sum()))
+
+
+def fused_rounds_64(dev, g):
+    """The fused round against its plain composition at rounds of the 64^3
+    final attempt (fill_slack 256, W = 512): the first round, the first
+    round with a row of fill > 32, the first with fill > 64, the middle
+    one and the last."""
     import numpy as np
     import torch
     from repro_torch.core import parac
     from repro_torch.core.column_math import key_from_seed
+    built = parac._build_pool(g, 256, np.float32)
+    s, st = parac._init_engine([built], [g.n], [key_from_seed(0)], n_pad=g.n,
+                               P_pad=built[6],
+                               W=max(parac._next_pow2(built[7]), 2),
+                               chunk=256, device=dev)
+    want = {"first": False, "fill > 32": False, "fill > 64": False,
+            "middle": False, "last": False}
+    wide = [0, 0]
+    for r in range(g.n + 1):
+        cand, ok = parac._round_ready(s.elim, s.dep, parac._live(s, st),
+                                      chunk=st.chunk)
+        fill = torch.where(ok, torch.gather(s.col_fill, 1, cand), 0)
+        live, top, n_elim = torch.stack(
+            [ok.sum(), fill.max().long(), s.n_elim[0].long()]).tolist()
+        if live == 0:
+            break
+        tags = [t for t, hit in (("first", r == 0),
+                                 ("fill > 32", top > 32),
+                                 ("fill > 64", top > 64),
+                                 ("middle", r == 749),
+                                 ("last", n_elim + live == g.n))
+                if hit and not want[t]]
+        if tags:
+            live, w32, w64 = round_against_plain(s, st, f"64^3 round {r}")
+            wide = [wide[0] + w32, wide[1] + w64]
+            for t in tags:
+                want[t] = True
+            log(f"[clique] fused round == plain composition bit for bit: "
+                f"64^3 final attempt (W={st.W}) round {r} "
+                f"({', '.join(tags)}): {live} live rows, {w32} with fill > "
+                f"32, {w64} with fill > 64, max fill {top}")
+        parac._engine_round(s, st)
+    check(all(want.values()), f"64^3 final attempt: rounds not reached "
+                              f"{[t for t, v in want.items() if not v]}")
+    check(wide[0] > 0 and wide[1] > 0, "64^3: no checked round held rows "
+                                       "of fill > 32 and > 64")
+
+
+def fused_rounds_batch(dev):
+    """The fused round against its plain composition on a B = 2 batch
+    (grid3d_uniform_16 and grid2d 64x64, fill_slack 64, padded to a common
+    bucket) at rounds over both factors."""
+    import numpy as np
+    from repro_torch.core import parac
+    from repro_torch.core.column_math import key_from_seed
     from repro_torch.data import graphs
-    rng = np.random.default_rng(0)
-    for W in (2, 32, 128, 512, 1024, 4096, 8192, 16384):
-        R = 256 if W <= 1024 else 16
-        fill = rng.integers(0, W + 1, R).astype(np.int32)
-        ids = rng.integers(0, max(2, W // 2), (R, W)).astype(np.int32)
-        ws = rng.uniform(0.1, 3.0, (R, W)).astype(np.float32)
-        u = rng.uniform(0.0, 1.0, (R, W)).astype(np.float32)
-        clique_rows(*(torch.from_numpy(a).to(dev) for a in (ids, ws, fill,
-                                                             u)))
-        log(f"[clique] random rows R={R} W={W}: 8/8 outputs bitwise equal")
+    gs = [permuted(graphs.SUITE["grid3d_uniform_16"]()),
+          permuted(graphs.grid2d(64, 64, seed=1))]
+    built = [parac._build_pool(g, 64, np.float32) for g in gs]
+    s, st = parac._init_engine(
+        built, [g.n for g in gs], [key_from_seed(0), key_from_seed(1)],
+        n_pad=parac._next_pow2(max(g.n for g in gs)),
+        P_pad=parac._next_pow2(max(b[6] for b in built)),
+        W=max(parac._next_pow2(max(b[7] for b in built)), 2), chunk=256,
+        device=dev)
+    for r in range(161):
+        if r % 40 == 0:
+            live, w32, w64 = round_against_plain(s, st, f"B=2 round {r}")
+            log(f"[clique] fused round == plain composition bit for bit: "
+                f"B=2 (W={st.W}) round {r}: {live} live rows, {w32} with "
+                f"fill > 32, {w64} with fill > 64")
+        parac._engine_round(s, st)
+
+
+def phase_clique(dev, g64):
+    import numpy as np
+    from repro_torch.core import parac
+    from repro_torch.core.column_math import key_from_seed
+    from repro_torch.data import graphs
+    from repro_torch.kernels import sample_clique as sc
+    clique_random_rows(dev)
     # rows of a real engine round: grid3d 16^3 after 40 rounds
     g = permuted(graphs.SUITE["grid3d_uniform_16"]())
     built = parac._build_pool(g, 32, np.float32)
@@ -260,12 +442,15 @@ def phase_clique(dev):
                                W=max(parac._next_pow2(built[7]), 2),
                                chunk=256, device=dev)
     parac._run_engine_batched(s, st, max_rounds=40)
-    cand, ok = parac._round_ready(s.elim, s.dep, parac._live(s), chunk=256)
-    ids, ws, fill, u, _, _ = parac._round_gather(s, st, cand, ok)
+    cand, ok = parac._round_ready(s.elim, s.dep, parac._live(s, st),
+                                  chunk=256)
+    ids, ws, fill, u, _, _ = sc.round_gather(s, st, cand, ok)
     clique_rows(ids, ws, fill, u)
     log(f"[clique] engine round 41 of grid3d_uniform_16 (R={ids.shape[0]} "
         f"W={ids.shape[1]}, {int(ok.sum())} live rows): 8/8 outputs "
         f"bitwise equal")
+    fused_rounds_64(dev, g64)
+    fused_rounds_batch(dev)
 
 
 def phase_factor16(dev):
@@ -296,6 +481,189 @@ def phase_factor16(dev):
         f" (card {t1 - t0:.2f}s incl. warm-up, CPU {t2 - t1:.2f}s)")
 
 
+class FactorProbe:
+    """Where a factor's time goes, read from the outside: wraps the
+    factorization's stages (parac._build_pool, _init_engine,
+    _run_engine_batched, _engine_round, _finalize_factor) and the solver's
+    admission (FactorCache.attach, with the build_schedules_batched it
+    calls) with host timers, synchronizing the card at each stage's ends,
+    while the ``with`` block runs.  Works on any tree whose modules keep these names.
+
+    Per engine run (one strict attempt) it records the slack, the gather
+    width W, the rounds run and the seconds; the round of the first
+    dropped edge is read from the device after the run (a graph frozen at
+    its first overflow stops its round counter there) or, with
+    ``history``, from a copy of the overflow counter taken after every
+    round (one device op a round; for a tree that does not freeze)."""
+
+    def __init__(self, history: bool = False):
+        self.history = history
+        self.attempts = []
+        self.t = dict(pools_s=0.0, engine_s=0.0, finalize_s=0.0,
+                      schedules_s=0.0, attach_s=0.0)
+
+    @staticmethod
+    def _sync():
+        import torch
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def _timed(self, key, fn, sync=True):
+        def run(*a, **kw):
+            if sync:
+                self._sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                self._sync()
+            self.t[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import parac, solver
+        probe = self
+        self._saved = [(parac, k, getattr(parac, k)) for k in (
+            "_build_pool", "_init_engine", "_run_engine_batched",
+            "_engine_round", "_finalize_factor")]
+        self._saved += [(solver, "build_schedules_batched",
+                         solver.build_schedules_batched),
+                        (solver.FactorCache, "attach",
+                         solver.FactorCache.attach)]
+        build_pool, init_engine, run_engine, engine_round = (
+            getattr(parac, k) for k in ("_build_pool", "_init_engine",
+                                        "_run_engine_batched",
+                                        "_engine_round"))
+        cur = {}
+
+        def build(g, fill_slack, dtype):
+            cur["slack"] = fill_slack
+            return build_pool(g, fill_slack, dtype)
+
+        def init(*a, **kw):
+            cur["W"] = kw["W"]
+            return init_engine(*a, **kw)
+
+        def one_round(s, st):
+            cur["rounds"] += 1
+            engine_round(s, st)
+            if probe.history:
+                cur["hist"].append(s.overflow.clone())
+
+        def run(s, st, **kw):
+            cur.update(rounds=0, hist=[])
+            probe._sync()
+            t0 = time.perf_counter()
+            out = run_engine(s, st, **kw)
+            probe._sync()
+            dt = time.perf_counter() - t0
+            probe.t["engine_s"] += dt
+            ovf = s.overflow.tolist()
+            if probe.history and cur["hist"]:
+                h = torch.stack(cur["hist"]).cpu()
+                first = [int(torch.nonzero(h[:, b] > 0)[0]) + 1
+                         if ovf[b] else None for b in range(len(ovf))]
+            else:
+                first = [int(r) if o else None
+                         for r, o in zip(s.n_rounds.tolist(), ovf)]
+            probe.attempts.append(dict(
+                fill_slack=cur["slack"], W=cur["W"], rounds_run=cur["rounds"],
+                first_overflow=first, overflow=ovf, seconds=dt))
+            return out
+
+        parac._build_pool = self._timed("pools_s", build, sync=False)
+        parac._init_engine = self._timed("pools_s", init)
+        parac._run_engine_batched = run
+        parac._engine_round = one_round
+        parac._finalize_factor = self._timed("finalize_s",
+                                             parac._finalize_factor)
+        solver.build_schedules_batched = self._timed(
+            "schedules_s", solver.build_schedules_batched)
+        solver.FactorCache.attach = self._timed("attach_s",
+                                                solver.FactorCache.attach)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, k, v in self._saved:
+            setattr(mod, k, v)
+        return False
+
+    def report(self, tag: str, factor_s: float) -> int:
+        """Log the attempts and the split of ``factor_s``; return the
+        rounds run."""
+        t = self.t
+        admission = t["attach_s"] - t["schedules_s"]
+        rounds = sum(a["rounds_run"] for a in self.attempts)
+        for k, a in enumerate(self.attempts):
+            log(f"[{tag}] attempt {k + 1}: fill_slack={a['fill_slack']} "
+                f"W={a['W']} rounds run={a['rounds_run']} first overflow at "
+                f"round {a['first_overflow'][0]} (overflow "
+                f"{a['overflow'][0]}) wall {a['seconds']:.3f}s")
+        other = factor_s - (t["pools_s"] + t["engine_s"] + t["finalize_s"]
+                            + t["attach_s"])
+        log(f"[{tag}] factor {factor_s:.3f}s = pools and uniforms "
+            f"{t['pools_s']:.3f}s + engine rounds {t['engine_s']:.3f}s "
+            f"({rounds} rounds, host {t['engine_s'] / max(rounds, 1) * 1e3:.3f}"
+            f" ms per round) + finalize and compaction "
+            f"{t['finalize_s']:.3f}s + schedules {t['schedules_s']:.3f}s + "
+            f"admission {admission:.3f}s + other {other:.3f}s")
+        return rounds
+
+
+def engine_rounds_busy(s, st, k: int = 16):
+    """``k`` consecutive engine rounds from the state ``s`` (advanced in
+    place): the wall time of an unprofiled run of those rounds from a
+    clone of the state, then from one torch.profiler trace of them the
+    device busy time and events, the host-issued operations (top-level
+    ops on the host) and the three device ops that take the most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import parac
+    twin = engine_clone(s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(k):
+        parac._engine_round(twin, st)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    del twin
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(k):
+            parac._engine_round(s, st)
+        torch.cuda.synchronize()
+    events = prof.events()
+    busy, n_dev = union_ms([(e.time_range.start, e.time_range.end)
+                            for e in events
+                            if e.device_type == DeviceType.CUDA])
+    host_ops = sum(1 for e in events if e.device_type == DeviceType.CPU
+                   and e.cpu_parent is None and e.name.startswith("aten::"))
+    by_name = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return dict(wall_ms=wall, busy_ms=busy, device_events=n_dev,
+                host_ops=host_ops, top=top)
+
+
+def log_engine_rounds(tag: str, start: int, r: dict, k: int = 16) -> None:
+    idle = ("device time not measured (the trace holds no device event)"
+            if r["busy_ms"] is None else
+            f"device busy {r['busy_ms']:.3f} ms in {r['device_events']} "
+            f"device events, idle share {1 - r['busy_ms'] / r['wall_ms']:.3f}")
+    log(f"[{tag}] {k} consecutive engine rounds of the 64^3 final attempt "
+        f"from round {start}: wall {r['wall_ms']:.3f} ms "
+        f"({r['wall_ms'] / k:.3f} ms per round); {idle}; "
+        f"{r['host_ops'] / k:.1f} host-issued ops and "
+        f"{r['device_events'] / k:.1f} device events per round")
+    log(f"[{tag}] their most expensive device ops: " + "; ".join(
+        f"{name[:70]} {ms:.3f} ms" for name, ms in r["top"]))
+
+
 def true_relres(g, x, b) -> float:
     """||L x - b|| / ||b|| in float64 on the host (edge-list matvec), with
     b projected to mean zero as the solver does."""
@@ -308,24 +676,37 @@ def true_relres(g, x, b) -> float:
                  / np.linalg.norm(b))
 
 
-def phase_main(dev):
+def check_early_stop(tag: str, probe: FactorProbe) -> None:
+    """Every discarded strict attempt stopped within 8 rounds (one check)
+    of its first overflow; the kept one dropped nothing."""
+    *discarded, kept = probe.attempts
+    for a in discarded:
+        first = a["first_overflow"][0]
+        check(first is not None and 0 <= a["rounds_run"] - first < 8,
+              f"{tag}: a discarded attempt ran {a['rounds_run']} rounds, "
+              f"its first overflow was at round {first}")
+    check(kept["overflow"] == [0], f"{tag}: the kept attempt overflowed")
+
+
+def phase_main(dev, g):
     import numpy as np
     import torch
     from repro_torch.core.column_math import key_from_seed
     from repro_torch.core.solver import Solver
-    from repro_torch.data import graphs
     from repro_torch.kernels import runtime
-    g = permuted(graphs.grid3d(64, 64, 64, "uniform", seed=2))
     rng = np.random.default_rng(0)
     b1 = rng.normal(size=g.n).astype(np.float32)
     B8 = rng.normal(size=(8, g.n)).astype(np.float32)
     torch.cuda.synchronize()
     runtime.reset_launches()
     t0 = time.time()
-    solver = Solver(chunk=256, fill_slack=32, strict=True, device=dev)
-    h = solver.factor(g, key_from_seed(0))
-    torch.cuda.synchronize()
+    with FactorProbe() as probe:
+        solver = Solver(chunk=256, fill_slack=32, strict=True, device=dev)
+        h = solver.factor(g, key_from_seed(0))
+        torch.cuda.synchronize()
     t_factor = time.time() - t0
+    rounds_run = probe.report("main", t_factor)
+    check_early_stop("main path", probe)
     f = h.factor
     t0 = time.time()
     r1 = solver.solve(torch.from_numpy(b1).to(dev), tol=1e-6, maxiter=500)
@@ -357,11 +738,18 @@ def phase_main(dev):
         rr = true_relres(g, x, b)
         check(rr < 1e-4, f"main path: true residual {rr:.2e} of a "
                          f"converged lane")
-    for name in ("sample_clique", "ell_sweep_fleet"):
+    for name in ("sample_clique_round", "ell_sweep_fleet"):
         check(launches.get(name, 0) > 0,
               f"main path never launched the {name} kernel")
-    check(launches.get("ell_spmv_fleet", 0) == 0,
-          "main path launched the full-row ell_spmv_fleet kernel")
+    check(launches.get("sample_clique_round", 0) == rounds_run,
+          "main path: sample_clique_round did not launch once per round")
+    check(launches.get("sample_clique_round", 0) < 5544,
+          "main path: the factor launched as many eliminations as before "
+          "the early stop (5,544)")
+    for name in ("sample_clique", "ell_spmv_fleet"):
+        check(launches.get(name, 0) == 0,
+              f"main path launched the {name} kernel, which it no longer "
+              f"uses")
     full_row = apply_against_full_row(dev, h)
     return dict(solver=solver, handle=h, launches=launches,
                 full_row_launches=full_row, t_factor=t_factor,
@@ -516,10 +904,13 @@ def phase_library(dev, main):
     torch.cuda.synchronize()
     runtime.reset_launches()
     t0 = time.time()
-    f = factorize_wavefront(g, key_from_seed(0), chunk=256, fill_slack=32,
-                            strict=True, device=dev)
-    torch.cuda.synchronize()
+    with FactorProbe() as probe:
+        f = factorize_wavefront(g, key_from_seed(0), chunk=256,
+                                fill_slack=32, strict=True, device=dev)
+        torch.cuda.synchronize()
     t_factor = time.time() - t0
+    probe.report("library", t_factor)
+    check_early_stop("library path", probe)
     t0 = time.time()
     apply = make_preconditioner(f)
     torch.cuda.synchronize()
@@ -1163,8 +1554,15 @@ def device_busy_ms(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return union_ms([(e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA])
+
+
+def union_ms(spans):
+    """(ms covered by the union of the (start, end) µs spans, span count);
+    (None, 0) for no span."""
+    spans = sorted(spans)
     if not spans:
         return None, 0
     busy, (lo, hi) = 0.0, spans[0]
@@ -1197,8 +1595,9 @@ def phase_timing(dev, main, spmv_errs):
                                chunk=256, device=dev)
     parac._run_engine_batched(s, st, max_rounds=max(f.stats["rounds"] // 2,
                                                     1))
-    cand, ok = parac._round_ready(s.elim, s.dep, parac._live(s), chunk=256)
-    ids, ws, fill, u, _, _ = parac._round_gather(s, st, cand, ok)
+    cand, ok = parac._round_ready(s.elim, s.dep, parac._live(s, st),
+                                  chunk=256)
+    ids, ws, fill, u, _, _ = sc.round_gather(s, st, cand, ok)
     err = clique_rows(ids, ws, fill, u)
     R, W = ids.shape
     ms = time_ms(lambda: sc.sample_clique(ids, ws, fill, u))
@@ -1218,6 +1617,12 @@ def phase_timing(dev, main, spmv_errs):
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         **bound(nbytes, ops), library_ms=None, shape=f"R={R} W={W}",
         device_ms=device_ms))
+    rows.append(round_timing(main, s, st, cand, ok, fill))
+    log(f"[timing] sample_clique_round bound over the padded lanes (R={R} "
+        f"W={W}, as sample_clique's): {bound(nbytes, ops)['bound_ms']:.5f} "
+        f"ms")
+    log_engine_rounds("timing", f.stats["rounds"] // 2,
+                      engine_rounds_busy(s, st))
 
     # ell_spmv_fleet at the main path's shapes: the 8-lane forward sweep
     fa = h.fleet.arrays
@@ -1287,18 +1692,144 @@ def phase_timing(dev, main, spmv_errs):
         # lane; the level's y read and written in each lane
         y_bytes = L * gathered_bytes(lc, lvals, 1)
         nbytes = live * 8 + (hi - lo) * 8 + y_bytes + 2 * L * (hi - lo) * 4
+        # the library yardstick: the level's live slots in CSR times the
+        # 8 lanes' x as columns (the product the sweep subtracts)
+        lens = fa.flen[h.fleet_row, r]
+        mask = (torch.arange(K, device=dev)[None, :] < lens[:, None])
+        crow = torch.zeros(hi - lo + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(lens.long(), 0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            lcsr = torch.sparse_csr_tensor(crow, lc[mask].long(),
+                                           lvals[mask],
+                                           size=(hi - lo, n_pad),
+                                           check_invariants=False)
+        Yl, Xc = X.clone(), X.T.contiguous()
+        sw(spmv.ell_sweep_fleet, Yl)
+        prod = torch.sparse.mm(lcsr, Xc)
+        torch.cuda.synchronize()
+        scale = max(float(X[:, r].abs().max()), float(prod.abs().max()),
+                    1e-30)
+        lib_rel = float(((X[:, r] - Yl[:, r]).T - prod).abs().max()) / scale
+        check(lib_rel <= 1e-4, f"torch.sparse.mm disagrees with "
+                               f"ell_sweep_fleet at the {tag} level "
+                               f"({lib_rel:.2e})")
+        lib_ms = time_ms(lambda: torch.sparse.mm(lcsr, Xc))
         rows.append(dict(
             name="ell_sweep_fleet", route="cuda",
             source="src/repro_torch/csrc/ell_spmv_fleet.cu",
             replaces="src/repro/kernels/spmv.py:104",
             launches=main["launches"].get("ell_sweep_fleet", 0),
             max_abs_err=spmv_errs["sweep"], ms=ms, plain_ms=plain_ms,
-            **bound(nbytes, 2 * L * live), library_ms=None,
+            **bound(nbytes, 2 * L * live), library_ms=lib_ms,
             shape=f"{tag} forward level {lv}: L={L} rows={hi - lo} K={K} "
                   f"live_slots={live} y_bytes={y_bytes}",
             device_ms=device_ms))
     log_rows(rows)
     return rows
+
+
+def round_timing(main, s, st, cand, ok, fill):
+    """The timing row of the fused round (sample_clique_round) at a real
+    round of the 64^3 final attempt: CUDA-event mean and device time per
+    launch of the kernel alone, each call on the same engine state
+    (restored before every call, outside the timed span), against the
+    plain composition's time, and the bound over the live lanes."""
+    import torch
+    from repro_torch.kernels import sample_clique as sc
+    snap = engine_clone(s)
+
+    def restore():
+        for a, b in zip(s, snap):
+            a.copy_(b)
+
+    def timed(fn, reps):
+        total = 0.0
+        for k in range(reps + 1):                       # the first warms up
+            restore()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            total += a.elapsed_time(b) if k else 0.0
+        return total / reps
+
+    a, b = engine_clone(s), engine_clone(s)
+    got = sc.eliminate_round(a, st, cand, ok)
+    want = sc.eliminate_round_plain(b, st, cand, ok)
+    torch.cuda.synchronize()
+    same = all(bitwise_equal(x[:, :-1] if x.dim() == 2 else x,
+                             y[:, :-1] if y.dim() == 2 else y)
+               for x, y in zip(a, b))
+    same &= all(bitwise_equal(x, y) for x, y in zip(got, want))
+    check(same, "sample_clique_round differs from its plain composition "
+                "at the timed round")
+    e_valid = want.e_valid.view(ok.shape[0], ok.shape[1], -1) & ok[:, :, None]
+    n_edges = int(e_valid.sum())
+    okf = ok.view(-1)
+    fl = fill[okf].long()
+    m = torch.gather(b.col_fill, 1, cand).view(-1)[okf].long()
+    del a, b, got, want
+    ms = timed(lambda: sc.eliminate_round(s, st, cand, ok), 20)
+    plain_ms = timed(lambda: sc.eliminate_round_plain(s, st, cand, ok), 5)
+    device_ms = kernel_device_ms(
+        lambda: sc.eliminate_round(s, st, cand, ok), restore,
+        "sample_clique_round_kernel")
+    restore()
+    # the live lanes: per real row its slab base and fill, its fill slab
+    # slots (id and weight) and one dependency counter read and written
+    # per slot, the m - 1 uniforms it samples with, the factor column
+    # written back (m slots) with col_fill, D and elim; per row its
+    # candidate and flag; the sampled edges (lo, hi, w, valid)
+    n_ok = int(okf.sum())
+    R = okf.numel()
+    nbytes = (R * 9 + n_ok * (8 + 4) + int(fl.sum()) * (8 + 8)
+              + int((m - 1).clamp(min=0).sum()) * 4 + int(m.sum()) * 8
+              + n_ok * 9 + n_edges * 13)
+    # sample_clique's operation count, each row at its own width
+    ops = 0
+    for f in fl.tolist():
+        w = max(1 << max(f - 1, 0).bit_length(), 2)
+        lg = w.bit_length() - 1
+        ops += (2 * (w // 2) * lg * (lg + 1) // 2 + 3 * w * lg
+                + 2 * w * (lg + 1) + 10 * w)
+    return dict(
+        name="sample_clique_round", route="cuda",
+        source="src/repro_torch/csrc/sample_clique.cu",
+        replaces="src/repro/kernels/sample_clique.py:218",
+        launches=main["launches"].get("sample_clique_round", 0),
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **bound(nbytes, ops),
+        library_ms=None,
+        shape=f"B=1 chunk={ok.shape[1]} W={st.W}: {n_ok} live rows, fill "
+              f"max {int(fl.max())} mean {float(fl.float().mean()):.1f}, "
+              f"{n_edges} edges, live bytes {nbytes}",
+        device_ms=device_ms)
+
+
+def kernel_device_ms(fn, setup, name: str, n: int = 20):
+    """Device time per launch of the kernel named ``name`` in one
+    torch.profiler trace of ``n`` calls of ``fn``, each after ``setup``
+    (whose own device work is not counted); None when the trace holds no
+    such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    setup()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            setup()
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    if not spans:
+        return None
+    return sum(spans) / len(spans) / 1e3
 
 
 def log_rows(rows) -> None:
@@ -1354,9 +1885,11 @@ def main() -> None:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     card = phase_build(runtime)
-    phase_clique(dev)
+    from repro_torch.data import graphs
+    g64 = permuted(graphs.grid3d(64, 64, 64, "uniform", seed=2))
+    phase_clique(dev, g64)
     phase_factor16(dev)
-    main_res = phase_main(dev)
+    main_res = phase_main(dev, g64)
     spmv_errs = phase_spmv(dev, main_res["handle"])
     lib_res = phase_library(dev, main_res)
     slabs = phase_slabs(dev, lib_res)

@@ -5,9 +5,11 @@ Each round of the engine:
   1. the *ready set* (dep == 0, not eliminated) is an independent set of
      the current multi-graph — take the ``chunk`` smallest labels;
   2. gather their column slabs from the static edge pool and eliminate
-     them all at once with the ``sample_clique`` kernel;
+     them all at once;
   3. write the normalized columns back in place (the pool doubles as the
-     output factor);
+     output factor) — stages 2 and 3 are one launch of the fused
+     ``sample_clique`` round kernel on the GPU
+     (``kernels.sample_clique.eliminate_round``);
   4. scatter the sampled spanning-tree edges to their owner column's slab
      at sort-derived offsets;
   5. update dependency counters with integer segment adds.
@@ -18,7 +20,10 @@ loop (its ``while_loop``) that reads the "anyone still running" flag
 every ``check_every`` rounds.  A graph that has finished takes no-op
 rounds (no candidate is ready, its round counter does not advance), so
 each graph takes exactly its own round sequence, as under the reference's
-vmap-of-while freeze.
+vmap-of-while freeze.  An attempt under ``strict`` that can still be
+retried freezes a graph at its first dropped edge as well, so a discarded
+attempt stops within ``check_every`` rounds of its first overflow; the
+attempt whose factor is kept runs exactly as the reference's.
 
 Every state array has one extra *drop* entry (pool slot ``P``, column
 ``n``) that absorbs the writes the reference discards with
@@ -37,10 +42,10 @@ import numpy as np
 import torch
 
 from .laplacian import Graph
-from .column_math import column_uniforms, INVALID_ID, ColumnElim
+from .column_math import column_uniforms, INVALID_ID
 from .ref_ac import ACFactor, DeviceFactor
-from ..kernels import ops
 from ..kernels.runtime import resolve_device
+from ..kernels import sample_clique as _sc
 
 I64 = torch.int64
 
@@ -63,15 +68,23 @@ class EngineStatic(NamedTuple):
     u: torch.Tensor          # f32[B, n, W] per-(vertex, slot) uniforms
     W: int                   # slab gather width (power of two ≥ 2)
     chunk: int
+    # a graph freezes (takes no-op rounds) at its first dropped edge: a
+    # strict attempt that will be retried stops there
+    freeze_on_overflow: bool = False
 
 
 # ---------------------------------------------------------------------------
 # round stages
 # ---------------------------------------------------------------------------
 
-def _live(s: EngineState) -> torch.Tensor:
+def _live(s: EngineState, st: EngineStatic) -> torch.Tensor:
+    """Graphs still running: not all eliminated, not stalled past n rounds
+    and, under ``st.freeze_on_overflow``, nothing dropped yet."""
     n = s.elim.shape[1] - 1
-    return (s.n_elim < n) & (s.n_rounds <= n)
+    live = (s.n_elim < n) & (s.n_rounds <= n)
+    if st.freeze_on_overflow:
+        live &= s.overflow == 0
+    return live
 
 
 def _round_ready(elim, dep, live, *, chunk: int):
@@ -90,60 +103,6 @@ def _round_ready(elim, dep, live, *, chunk: int):
     return cand, cand < n
 
 
-def _round_gather(s: EngineState, st: EngineStatic, cand, cand_ok):
-    """Stage 2a — gather the candidates' slabs and uniforms: the inputs
-    of the elimination kernel, rows ``[B*chunk, W]``."""
-    B, chunk = cand.shape
-    W = st.W
-    P = s.pool_row.shape[1] - 1
-    n = s.elim.shape[1] - 1
-    offs = torch.arange(W, dtype=I64, device=cand.device)
-    base = torch.gather(st.col_base, 1, cand)
-    fill = torch.where(cand_ok, torch.gather(s.col_fill, 1, cand), 0)
-    slots = base[:, :, None] + offs
-    sv = offs < fill[:, :, None]
-    slots_c = torch.where(sv, slots, P).reshape(B, chunk * W)
-    ids = torch.where(sv, torch.gather(s.pool_row, 1, slots_c)
-                      .view(B, chunk, W), INVALID_ID)
-    ws = torch.where(sv, torch.gather(s.pool_val, 1, slots_c)
-                     .view(B, chunk, W), 0.0)
-    u = torch.gather(st.u, 1, cand.clamp(max=n - 1)[:, :, None]
-                     .expand(-1, -1, W))
-    return (ids.view(B * chunk, W), ws.view(B * chunk, W),
-            fill.view(B * chunk).to(torch.int32), u.view(B * chunk, W),
-            slots, sv)
-
-
-def _round_eliminate(s: EngineState, st: EngineStatic, cand, cand_ok):
-    """Stage 2 — eliminate all candidates at once (the kernel)."""
-    ids, ws, fill, u, slots, sv = _round_gather(s, st, cand, cand_ok)
-    res = ops.sample_clique(ids, ws, fill, u)
-    return res, slots, sv, ids
-
-
-def _round_commit(s: EngineState, cand, cand_ok, res: ColumnElim, slots, sv,
-                  ids):
-    """Stages 3+4 — write normalized factor columns in place and decrement
-    dependency counters for the consumed multi-edges (in place)."""
-    B, chunk = cand.shape
-    W = slots.shape[2]
-    P = s.pool_row.shape[1] - 1
-    n = s.elim.shape[1] - 1
-    offs = torch.arange(W, dtype=I64, device=cand.device)
-    m = res.m.view(B, chunk)
-    wmask = (offs < m[:, :, None]) & cand_ok[:, :, None]
-    tgt = torch.where(wmask, slots, P).view(B, chunk * W)
-    s.pool_row.scatter_(1, tgt, res.g_rows.view(B, chunk * W))
-    s.pool_val.scatter_(1, tgt, res.g_vals.view(B, chunk * W))
-    s.col_fill.scatter_(1, cand, torch.where(
-        cand_ok, m, torch.gather(s.col_fill, 1, cand)))
-    s.D.scatter_(1, cand, torch.where(
-        cand_ok, res.ell_kk.view(B, chunk), torch.gather(s.D, 1, cand)))
-    s.elim.scatter_(1, cand, cand_ok | torch.gather(s.elim, 1, cand))
-    dec = torch.where(sv, ids.view(B, chunk, W).to(I64), n).view(B, -1)
-    s.dep.scatter_add_(1, dec, torch.full_like(dec, -1, dtype=torch.int32))
-
-
 def _run_ranks(sorted_keys: torch.Tensor) -> torch.Tensor:
     """Rank of each element within its run of equal consecutive keys,
     row-wise (keys sorted along the last axis)."""
@@ -155,7 +114,7 @@ def _run_ranks(sorted_keys: torch.Tensor) -> torch.Tensor:
     return eidx - run_start
 
 
-def _round_scatter(s: EngineState, st: EngineStatic, res: ColumnElim,
+def _round_scatter(s: EngineState, st: EngineStatic, res: _sc.RoundEdges,
                    cand_ok):
     """Stage 5 — scatter sampled spanning-tree edges to their owner
     column's slab at stable-sort-derived offsets; edges past a slab's
@@ -187,22 +146,22 @@ def _round_scatter(s: EngineState, st: EngineStatic, res: ColumnElim,
 def _engine_round(s: EngineState, st: EngineStatic) -> None:
     """One bulk-synchronous round over every graph of the batch (in
     place).  Finished graphs take a no-op round."""
-    live = _live(s)
+    live = _live(s, st)
     cand, cand_ok = _round_ready(s.elim, s.dep, live, chunk=st.chunk)
-    res, slots, sv, ids = _round_eliminate(s, st, cand, cand_ok)
-    _round_commit(s, cand, cand_ok, res, slots, sv, ids)
-    _round_scatter(s, st, res, cand_ok)
+    edges = _sc.eliminate_round(s, st, cand, cand_ok)
+    _round_scatter(s, st, edges, cand_ok)
     s.n_elim.add_(cand_ok.sum(dim=1, dtype=torch.int32))
     s.n_rounds.add_(live.to(torch.int32))
 
 
 def _run_engine_batched(s: EngineState, st: EngineStatic, *,
                         check_every: int = 8,
-                        max_rounds: Optional[int] = None) -> EngineState:
-    """Rounds until every graph has finished (or stalled past n rounds),
-    reading the device's "still running" flag every ``check_every``
-    rounds.  ``max_rounds`` stops early (a partial run, for tests and
-    for capturing a real round's kernel inputs)."""
+                        max_rounds: Optional[int] = None) -> int:
+    """Rounds until every graph has finished, stalled past n rounds or
+    frozen by an overflow, reading the device's "still running" flag
+    every ``check_every`` rounds (one host read).
+    ``max_rounds`` stops early (a partial run, for tests and for
+    capturing a real round's kernel inputs).  Returns the rounds run."""
     done = 0
     while max_rounds is None or done < max_rounds:
         k = check_every if max_rounds is None else \
@@ -210,9 +169,9 @@ def _run_engine_batched(s: EngineState, st: EngineStatic, *,
         for _ in range(k):
             _engine_round(s, st)
         done += k
-        if not bool(_live(s).any()):
+        if not bool(_live(s, st).any()):
             break
-    return s
+    return done
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +222,8 @@ def _pad_np(x: np.ndarray, size: int, fill) -> np.ndarray:
 
 
 def _init_engine(built, ns, keys, *, n_pad: int, P_pad: int, W: int,
-                 chunk: int, device) -> tuple:
+                 chunk: int, device, freeze_on_overflow: bool = False
+                 ) -> tuple:
     """Stack per-graph pools (padded to ``n_pad`` vertices and ``P_pad``
     slots, plus the drop entries) into the engine's state and statics.
     Phantom vertices ``n..n_pad`` start eliminated."""
@@ -296,7 +256,8 @@ def _init_engine(built, ns, keys, *, n_pad: int, P_pad: int, W: int,
     for b, (n, key) in enumerate(zip(ns, keys)):
         u[b, :n] = column_uniforms(
             key, torch.arange(n, dtype=torch.int32, device=device), W)
-    st = EngineStatic(col_base=dev(CB), cap=dev(CP), u=u, W=W, chunk=chunk)
+    st = EngineStatic(col_base=dev(CB), cap=dev(CP), u=u, W=W, chunk=chunk,
+                      freeze_on_overflow=freeze_on_overflow)
     return s, st
 
 
@@ -343,7 +304,8 @@ def factorize_wavefront(g: Graph, key, *, chunk: int = 64,
     """Parallel ParAC factorization of one graph on ``device`` (the GPU
     unless the CPU is asked for).  Bit-identical to the sequential oracle
     for the same key when nothing overflows; ``strict`` retries with a
-    doubled slack while sampled edges are dropped."""
+    doubled slack while sampled edges are dropped, stopping an attempt it
+    will retry within ``check_every`` rounds of its first drop."""
     device = resolve_device(device)
     n = g.n
     slack = fill_slack
@@ -354,7 +316,9 @@ def factorize_wavefront(g: Graph, key, *, chunk: int = 64,
         s, st = _init_engine([built], [n], [np.asarray(key, np.uint32)],
                              n_pad=n, P_pad=P,
                              W=max(_next_pow2(dmax), 2), chunk=ck,
-                             device=device)
+                             device=device,
+                             freeze_on_overflow=strict
+                             and attempt < max_retries)
         _run_engine_batched(s, st)
         ovf = int(s.overflow[0])
         if ovf == 0 or not strict or attempt == max_retries:
@@ -377,9 +341,11 @@ def factorize_batched(gs: Sequence[Graph], keys, *, chunk: int = 64,
     belong to zero-capacity columns, so each factor is bit-identical to
     ``factorize_wavefront(g, key, ...)``.  Overflow is handled per graph:
     converged graphs keep their factor while the overflowing subset
-    re-runs at doubled slack.  With ``with_schedules`` the fleet's
-    triangular level schedules are derived in one batched pass too and
-    the call returns ``(factors, schedules)``."""
+    re-runs at doubled slack; in an attempt that can still be retried a
+    graph freezes at its first dropped edge while the others run on.
+    With ``with_schedules`` the fleet's triangular level schedules are
+    derived in one batched pass too and the call returns ``(factors,
+    schedules)``."""
     device = resolve_device(device)
     gs = list(gs)
     B = len(gs)
@@ -403,7 +369,9 @@ def factorize_batched(gs: Sequence[Graph], keys, *, chunk: int = 64,
                              [gs[i].n for i in pending],
                              [ks[i] for i in pending], n_pad=n_pad,
                              P_pad=P_pad, W=max(_next_pow2(dmax_pad), 2),
-                             chunk=chunk_eff, device=device)
+                             chunk=chunk_eff, device=device,
+                             freeze_on_overflow=strict
+                             and attempt < max_retries)
         _run_engine_batched(s, st)
         ovfs = s.overflow.tolist()
         retry = []

@@ -42,6 +42,88 @@ def test_sample_clique_kernel_bitwise(dev, W):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("fills", ["1-32", "33-64", "u=0"])
+def test_sample_clique_kernel_row_widths(dev, fills):
+    """Rows at W = 512 whose own width is a warp's (fills 1-32) or wider
+    (33-64), and rows with u = 0 and weights over 33 decades (thresholds
+    equal to S1, sums that round): all eight outputs bitwise equal."""
+    rng = np.random.default_rng(len(fills))
+    R, W = 128, 512
+    lo, hi = {"1-32": (1, 32), "33-64": (33, 64), "u=0": (2, 64)}[fills]
+    fill = rng.integers(lo, hi + 1, R).astype(np.int32)
+    ids = rng.integers(0, 48, (R, W)).astype(np.int32)
+    ws = rng.uniform(0.1, 3.0, (R, W)).astype(np.float32)
+    u = rng.uniform(0.0, 1.0, (R, W)).astype(np.float32)
+    if fills == "u=0":
+        ws = (10.0 ** rng.uniform(-30, 3, (R, W))).astype(np.float32)
+        u[:] = 0.0
+    args = [torch.from_numpy(a).to(dev) for a in (ids, ws, fill, u)]
+    k = sc.sample_clique(*args)
+    p = sc.sample_clique_plain(*args)
+    for a, b in zip(k, p):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+def _engine_on(dev, gs, slack):
+    from repro_torch.core import parac
+    from repro_torch.core.column_math import key_from_seed
+    built = [parac._build_pool(g, slack, np.float32) for g in gs]
+    return parac._init_engine(
+        built, [g.n for g in gs], [key_from_seed(i) for i in range(len(gs))],
+        n_pad=parac._next_pow2(max(g.n for g in gs)),
+        P_pad=parac._next_pow2(max(b[6] for b in built)),
+        W=max(parac._next_pow2(max(b[7] for b in built)), 2), chunk=256,
+        device=dev)
+
+
+@pytest.mark.parametrize("case", ["grid3d16-slack256", "batch2"])
+def test_fused_round_bitwise(dev, case):
+    """The fused round against its plain composition, round after round:
+    the engine state after each (drop entries aside) and the edges bit for
+    bit, with rows wider than a warp (slack 256, W = 512) and a B = 2
+    batch; one launch per round."""
+    from repro_torch.core import parac
+    from repro_torch.core.ordering import ORDERINGS
+    from repro_torch.data import graphs
+
+    def perm(g):
+        return g.permute(ORDERINGS["nnz-sort"](g, seed=0)).coalesce()
+
+    g16 = perm(graphs.SUITE["grid3d_uniform_16"]())
+    if case == "batch2":
+        s, st = _engine_on(dev, [g16, perm(graphs.grid2d(40, 50, seed=1))],
+                           64)
+    else:
+        s, st = _engine_on(dev, [g16], 256)
+        assert st.W == 512
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    widest = 0
+    for _ in range(160):
+        live = parac._live(s, st)
+        cand, ok = parac._round_ready(s.elim, s.dep, live, chunk=st.chunk)
+        fill = torch.where(ok, torch.gather(s.col_fill, 1, cand), 0)
+        widest = max(widest, int(fill.max()))
+        a = type(s)(*(t.clone() for t in s))
+        before = runtime.LAUNCHES.get("sample_clique_round", 0)
+        got = sc.eliminate_round(s, st, cand, ok)
+        assert runtime.LAUNCHES["sample_clique_round"] == before + 1
+        want = sc.eliminate_round_plain(a, st, cand, ok)
+        for x, y in zip(s, a):
+            if x.dim() == 2:                 # the drop entries aside
+                x, y = x[:, :-1], y[:, :-1]
+            assert torch.equal(bits(x), bits(y))
+        for x, y in zip(got, want):
+            assert torch.equal(bits(x), bits(y))
+        parac._round_scatter(s, st, got, ok)
+        s.n_elim.add_(ok.sum(dim=1, dtype=torch.int32))
+        s.n_rounds.add_(live.to(torch.int32))
+    assert widest > 32
+
+
 def test_ell_spmv_fleet_kernel(dev):
     rng = np.random.default_rng(0)
     F, R, K, n, L = 3, 1000, 37, 1000, 5
