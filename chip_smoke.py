@@ -129,6 +129,30 @@ to a plain version while a GPU is present):
            its plain composition, with its bound over the live lanes
            beside the padded-lane bound; and 16 consecutive engine rounds
            from there: wall time, device busy time, idle share.
+  serve    the serving stack through its entry points, on the main path's
+           Solver (its max_handles raised to 2): a second factor of the
+           64^3 graph under key 1 (graph_id g64_k1; sample_clique_round
+           once per round), the two handles' bucket keys, the fleet stack's
+           bytes per device and the peak device memory; then, launch
+           counts reset just before and read just after, a seeded trace of
+           12 requests alternating between the two factors (requests 3, 7
+           and 11 blocks of 4 right-hand sides, 21 columns; tol 1e-6 and
+           1e-4 in alternate pairs, maxiter 500) through a SolveEngine (8
+           slots, 8 iterations a tick, with a MetricsRegistry, a Tracer and
+           a FlightRecorder) drained by run_until_drained, and the same
+           trace as fresh requests through a SolveFrontend over a fresh
+           engine on the same cache, awaited on asyncio.  Every request
+           must converge and equal a direct handle.solve of its own block
+           bit for bit (x, iters, relres), every column's true residual
+           must be below 10 tol, each run's EngineStats must count 12
+           requests and 21 columns in and out (step_compiles == buckets),
+           the rendered repro_engine_completed_total must sum to 24, the
+           tracer must hold one trace per request with its stage spans
+           summing to its latency, ell_sweep_fleet must have launched and
+           no other kernel.  Printed: ticks, tick wall (median, max),
+           requests/s and column-iterations/s, latency p50/p99 and queue
+           wait p50, and the device busy share of one full tick (8 lanes)
+           from a torch.profiler trace.
 
 The build phase also prints the number of HGMMA (wgmma) instructions in
 the attention library's SASS, where cuobjdump exists.
@@ -1525,6 +1549,211 @@ def apply_timing(dev, main, slabs):
     return out
 
 
+# kernels that must not launch while the [serve] phase serves: only the
+# fleet level sweep runs a request's PCG
+SERVE_SILENT = ("ell_spmv_fleet", "sample_clique", "sample_clique_round",
+                "ell_sweep", "ell_sweep_multi", "ell_spmv", "ell_spmv_multi",
+                "flash_attention")
+
+
+def serve_trace(n: int, gids):
+    """The [serve] trace: 12 (graph id, rhs block, tol) alternating
+    between the two factors; requests 3, 7 and 11 are blocks of 4
+    right-hand sides, the other 9 single (21 columns in all); tol 1e-6
+    and 1e-4 in alternate pairs, so each factor sees both."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    out = []
+    for i in range(12):
+        nrhs = 4 if i in (3, 7, 11) else 1
+        b = rng.normal(size=(nrhs, n) if nrhs > 1 else n).astype(np.float32)
+        out.append((gids[i % 2], b, (1e-6, 1e-4)[(i // 2) % 2]))
+    return out
+
+
+def timed_ticks(eng, durations):
+    """Record the wall time of every ``eng.tick()`` into ``durations``
+    (``run_until_drained`` calls the instance's ``tick``)."""
+    tick = eng.tick
+
+    def timed():
+        t0 = time.perf_counter()
+        out = tick()
+        durations.append(time.perf_counter() - t0)
+        return out
+    eng.tick = timed
+
+
+def full_tick_busy(dev, solver, gids, n):
+    """(unprofiled wall ms, device busy ms, device events) of one engine
+    tick with all 8 lanes stepping: 8 single-column requests that cannot
+    converge in the ticks measured, admitted by a first tick."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import SolveEngine, SolveRequest
+    eng = SolveEngine(solver, slots=8, iters_per_tick=8)
+    rng = np.random.default_rng(2)
+    for i in range(8):
+        eng.submit(SolveRequest(
+            rid=i, graph_id=gids[i % 2], tol=1e-30, maxiter=24,
+            b=rng.normal(size=n).astype(np.float32)))
+    eng.tick()
+    check(sum(lane is not None for lane in eng.lanes) == 8,
+          "serve: the full tick's 8 lanes were not all admitted")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.tick()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, events = device_busy_ms(eng.tick)
+    eng.run_until_drained()
+    return wall, busy, events
+
+
+def phase_serve(dev, main, card):
+    """The [serve] phase (see the module docstring)."""
+    import asyncio
+    import numpy as np
+    import torch
+    from repro_torch.core.column_math import key_from_seed
+    from repro_torch.kernels import runtime
+    from repro_torch.obs import (FlightRecorder, MetricsRegistry, Tracer,
+                                 percentile, render)
+    from repro_torch.serve import SolveEngine, SolveFrontend, SolveRequest
+    t_phase = time.time()
+    solver, g, h0 = main["solver"], main["graph"], main["handle"]
+    solver.max_handles = 2          # the Solver's default keeps one factor
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    t0 = time.time()
+    with FactorProbe() as probe:
+        h1 = solver.factor(g, key_from_seed(1), graph_id="g64_k1")
+        torch.cuda.synchronize()
+    t_factor = time.time() - t0
+    rounds = probe.report("serve", t_factor)
+    check(runtime.LAUNCHES.get("sample_clique_round", 0) == rounds,
+          "serve: the second factor did not launch sample_clique_round "
+          "once per round")
+    check(h0.graph_id in solver and "g64_k1" in solver,
+          "serve: the two factors are not both cached")
+    keys = [(h.fleet.family, h.fleet.n_pad, h.fleet.k_tier)
+            for h in (h0, h1)]
+    shared = h0.fleet is h1.fleet
+    st = solver.stats()
+    log(f"[serve] second factor (key 1) {t_factor:.2f}s, {rounds} rounds; "
+        f"bucket keys {keys[0]} and {keys[1]} "
+        f"({'one fleet' if shared else 'two fleets'}, rows "
+        f"{h0.fleet_row} and {h1.fleet_row}, Kf {h1.fleet.Kf} Kb "
+        f"{h1.fleet.Kb}); fleet bytes by device "
+        f"{st['fleet_device_bytes_by_device']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {card}")
+    gids = [h0.graph_id, "g64_k1"]
+    trace = serve_trace(g.n, gids)
+    cols = sum(np.atleast_2d(b).shape[0] for _, b, _ in trace)
+    reg, tracer, flight = MetricsRegistry(), Tracer(), FlightRecorder()
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    eng = SolveEngine(solver, slots=8, iters_per_tick=8, metrics=reg,
+                      tracer=tracer, flight=flight)
+    ticks = []
+    timed_ticks(eng, ticks)
+    reqs = [SolveRequest(rid=i, graph_id=gid, b=b, tol=tol, maxiter=500)
+            for i, (gid, b, tol) in enumerate(trace)]
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run_until_drained()
+    t_engine = time.perf_counter() - t0
+    eng2 = SolveEngine(solver, slots=8, iters_per_tick=8, metrics=reg,
+                       tracer=tracer, flight=flight)
+
+    async def drive(fe):
+        return await asyncio.gather(*[
+            fe.solve(gid, b, tol=tol, maxiter=500)
+            for gid, b, tol in trace])
+
+    t0 = time.perf_counter()
+    with SolveFrontend(eng2, max_queue=64) as fe:
+        served = asyncio.run(drive(fe))
+        fstats = fe.stats()
+    t_front = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(runtime.LAUNCHES)
+    log(f"[serve] launches over both runs: {launches}")
+    check(launches.get("ell_sweep_fleet", 0) > 0,
+          "serve: ell_sweep_fleet never launched")
+    for name in SERVE_SILENT:
+        check(launches.get(name, 0) == 0,
+              f"serve: the {name} kernel launched while serving")
+    check(len(done) == 12 and fstats.completed == 12 and fstats.failed == 0,
+          "serve: a request did not complete")
+    for tag, e in (("engine", eng), ("frontend", eng2)):
+        es = e.stats()
+        log(f"[serve] {tag} stats: {es.as_dict()}")
+        check(es.completed == 12 and es.cols_in == es.cols_out == cols,
+              f"serve: {tag} EngineStats count {es.completed} requests, "
+              f"{es.cols_in} columns in, {es.cols_out} out")
+        check(es.step_compiles == es.buckets,
+              f"serve: {tag} step signatures {es.step_compiles} != buckets "
+              f"{es.buckets}")
+    handles = {h0.graph_id: h0, "g64_k1": h1}
+    for i, (gid, b, tol) in enumerate(trace):
+        ref = handles[gid].solve(torch.from_numpy(np.atleast_2d(b)).to(dev),
+                                 tol=tol, maxiter=500)
+        x_ref = ref.x.cpu().numpy()
+        for tag, r in (("engine", reqs[i]), ("frontend", served[i])):
+            check(r.status == "converged",
+                  f"serve: {tag} request {i} ended {r.status!r}")
+            check(np.array_equal(np.atleast_2d(r.x).view(np.uint32),
+                                 x_ref.view(np.uint32))
+                  and np.array_equal(np.atleast_1d(r.iters),
+                                     ref.iters.cpu().numpy())
+                  and np.array_equal(np.atleast_1d(r.relres),
+                                     ref.relres.cpu().numpy()
+                                     .astype(np.float64)),
+                  f"serve: {tag} request {i} differs from its direct solve")
+        for x, bb in zip(x_ref, np.atleast_2d(b)):
+            rr = true_relres(g, x, bb)
+            check(rr < 10 * tol, f"serve: request {i} true residual "
+                                 f"{rr:.2e} at tol {tol:.0e}")
+    samples = [ln for ln in render(reg).splitlines()
+               if ln.startswith("repro_engine_completed_total{")]
+    total = sum(float(ln.rsplit(" ", 1)[1]) for ln in samples)
+    check(total == 24, f"serve: repro_engine_completed_total sums to "
+                       f"{total}, not 24")
+    traces = {tr.trace_id: tr for tr in tracer.traces()}
+    every = reqs + served
+    check(len(traces) == 24 and set(traces) == {r.trace_id for r in every},
+          f"serve: {len(traces)} traces for 24 requests")
+    for r in every:
+        tr = traces[r.trace_id]
+        check(abs(tr.span_sum_s - r.latency_s) <= 0.05 * r.latency_s,
+              f"serve: request {r.rid}'s spans sum to {tr.span_sum_s:.4f}s "
+              f"of a {r.latency_s:.4f}s latency")
+    col_iters = sum(int(np.sum(r.iters)) for r in reqs)
+    lat = [r.latency_s for r in reqs]
+    log(f"[serve] engine run: {eng.ticks} ticks in {t_engine:.3f}s, tick "
+        f"wall median {percentile(ticks, 50) * 1e3:.2f} ms max "
+        f"{max(ticks) * 1e3:.2f} ms; {12 / t_engine:.3f} requests/s, "
+        f"{col_iters / t_engine:.1f} column-iterations/s ({col_iters} "
+        f"column-iterations); latency p50 {percentile(lat, 50):.3f}s p99 "
+        f"{percentile(lat, 99):.3f}s, queue wait p50 "
+        f"{percentile([r.queue_wait_s for r in reqs], 50):.3f}s; {card}")
+    flat = [r.latency_s for r in served]
+    log(f"[serve] frontend run: {eng2.ticks} ticks in {t_front:.3f}s; "
+        f"{12 / t_front:.3f} requests/s; latency p50 "
+        f"{percentile(flat, 50):.3f}s p99 {percentile(flat, 99):.3f}s, "
+        f"queue wait p50 "
+        f"{percentile([r.queue_wait_s for r in served], 50):.3f}s; {card}")
+    wall, busy, events = full_tick_busy(dev, solver, gids, g.n)
+    idle = ("device time not measured (the trace holds no device event)"
+            if busy is None else
+            f"device busy {busy:.2f} ms in {events} device events, busy "
+            f"share {busy / wall:.3f} of the unprofiled tick")
+    log(f"[serve] one full tick (8 lanes, 8 iterations): {wall:.2f} ms; "
+        f"{idle}; {card}")
+    log(f"[serve] phase passed in {time.time() - t_phase:.1f}s; {card}")
+
+
 def device_ms_per_launch(fn, n: int = 20, tries: int = 3):
     """Device time of one call of ``fn`` (one kernel launch): the busy
     time of ``n`` back-to-back calls in one trace over ``n``, so the host's
@@ -1899,6 +2128,7 @@ def main() -> None:
     kernels += sweep_rows_timing(dev, slabs, lib_res)
     kernels += attention_timing(dev, attn)
     apply_timing(dev, main_res, slabs)
+    phase_serve(dev, main_res, card)
     log(f"[done] all phases passed in {time.time() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": [{k: r[k] for k in ROW_KEYS + EXTRA_KEYS
                                    if k in r} for r in kernels]}))

@@ -12,5 +12,6 @@ from .pcg import (pcg_batched, pcg_np,                               # noqa: F40
                   pcg_batched_init, pcg_batched_step, pcg_batched_result,
                   laplacian_pcg, laplacian_pcg_batched, laplacian_pcg_np)
 from .solver import (Solver, FactorCache, FactorHandle,              # noqa: F401
-                     PreconditionerHandle, FactorFleet)
+                     PreconditionerHandle, FactorFleet, PrecondFamily,
+                     PRECOND_FAMILIES, register_family, get_family)
 from .ordering import ORDERINGS                                      # noqa: F401

@@ -13,7 +13,14 @@ panels and D⁻¹ into one :class:`pcg.FleetArrays`.  Solves read the stack
 through each lane's row index, so factors of one bucket share the same
 kernels and nothing is copied per solve.  The cache is an LRU keyed by a
 content fingerprint of ``(graph, key)`` that evicts whole handles when
-the device-memory budget or the handle count is exceeded.
+the device-memory budget or the handle count is exceeded, and supports
+per-handle staleness (``ttl_s`` wall-clock / ``max_age_ticks`` service
+ticks, clock injectable for tests).  A fleet compacts to its live rows
+once enough of them died (``compact_threshold``).
+
+Preconditioner families register by name (:func:`register_family`); the
+port registers ``"ac"`` only, so ``factor(..., family="ichol")`` raises
+the registry's ``KeyError`` until the other families are ported.
 
 ``Solver`` keeps the single-tenant surface (``factor`` then ``solve(B)``
 against the most recent handle).
@@ -26,24 +33,31 @@ import heapq
 import time
 import weakref
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..kernels.runtime import pad_k, resolve_device
+from ..obs.flight import NULL_FLIGHT
 from .laplacian import Graph, laplacian_adjacency
 from .ref_ac import ACFactor, DeviceFactor
 from .parac import factorize_wavefront, factorize_batched, _next_pow2
 from .trisolve import PackedSchedule, build_schedules_batched
-from .pcg import (PCGResult, FleetArrays, fleet_precondition, pcg_fleet_solve,
-                  pcg_fleet_result)
+from .pcg import (PCGResult, FleetArrays, fleet_matvec, fleet_precondition,
+                  pcg_fleet_solve, pcg_fleet_result)
 
 
-def graph_fingerprint(g: Graph, key=None) -> str:
-    """Content hash of a graph and (optionally) the factorization key —
-    the cache identity of an AC factor (the same bytes as the reference's
-    AC fingerprint: n, src, dst, w, then the raw uint32[2] key)."""
+_UNSET = object()
+
+
+def graph_fingerprint(g: Graph, key=None, *, family: str = "ac",
+                      params: Optional[Dict] = None) -> str:
+    """Content hash of a graph and (optionally) the factorization key,
+    preconditioner family and construction params — the cache identity
+    of a preconditioner (the reference's bytes: n, src, dst, w, the raw
+    uint32[2] key, then family and params unless ``"ac"`` without
+    params)."""
     h = hashlib.blake2b(digest_size=12)
     h.update(np.int64(g.n).tobytes())
     h.update(np.ascontiguousarray(g.src).tobytes())
@@ -51,7 +65,59 @@ def graph_fingerprint(g: Graph, key=None) -> str:
     h.update(np.ascontiguousarray(g.w).tobytes())
     if key is not None:
         h.update(np.ascontiguousarray(np.asarray(key, np.uint32)).tobytes())
+    if family != "ac" or params:
+        h.update(family.encode())
+        h.update(repr(sorted((params or {}).items())).encode())
     return h.hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# Preconditioner family registry
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PrecondFamily:
+    """One registered preconditioner family.  ``kind`` selects the
+    fleet's apply (``"factor"``: two level-swept triangular solves;
+    ``"spmv"``: one lane-batched SpMV, not yet in the port); ``build``
+    constructs the payload, ``build(g, key, dtype=..., **params)``."""
+
+    name: str
+    kind: str
+    build: Callable
+
+
+PRECOND_FAMILIES: Dict[str, PrecondFamily] = {}
+
+
+def register_family(name: str, kind: str, build: Callable) -> PrecondFamily:
+    """Register (or replace) a preconditioner family; raises
+    ``ValueError`` for an unknown ``kind``."""
+    if kind not in ("factor", "spmv"):
+        raise ValueError(f"unknown apply kind {kind!r}")
+    fam = PrecondFamily(name=name, kind=kind, build=build)
+    PRECOND_FAMILIES[name] = fam
+    return fam
+
+
+def get_family(name: str) -> PrecondFamily:
+    """Look up a registered family; ``KeyError`` if there is none."""
+    fam = PRECOND_FAMILIES.get(name)
+    if fam is None:
+        raise KeyError(f"unknown preconditioner family {name!r} "
+                       f"(registered: {sorted(PRECOND_FAMILIES)})")
+    return fam
+
+
+register_family(
+    "ac", "factor",
+    # ``FactorCache.factor`` calls ``factorize_wavefront`` itself (and
+    # ``factor_batched`` the batched engine); this is the single-graph
+    # builder for callers that go through the registry
+    lambda g, key, *, dtype=np.float32, chunk=64, fill_slack=32,
+    strict=True, max_retries=3, device=None: factorize_wavefront(
+        g, key, chunk=chunk, fill_slack=fill_slack, strict=strict,
+        max_retries=max_retries, dtype=dtype, device=device))
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -125,7 +191,10 @@ class FactorFleet:
     dies, and admission reuses dead rows (lowest first) before growing
     the stack.  Growth along any axis zero-pads — padding Laplacian slots
     and panel slots carry zero weights — and pads level starts with
-    ``n_pad`` (an empty level), so members' solves are unchanged by it."""
+    ``n_pad`` (an empty level), so members' solves are unchanged by it.
+    :meth:`compact` is the inverse: it rebuilds the stack to the live
+    rows and bumps ``generation`` so an engine holding lane state keyed
+    by old row indices re-syncs them."""
 
     def __init__(self, n_pad: int, family: str = "ac", kind: str = "factor",
                  k_tier: int = 0, device=None):
@@ -139,6 +208,8 @@ class FactorFleet:
         self.Kb = 1
         self.f_rows: List[int] = [0]   # per-level row maxima (host)
         self.b_rows: List[int] = [0]
+        self.generation = 0        # bumped by compact(): row indices moved
+        self.compactions = 0
         self.arrays: Optional[FleetArrays] = None
         self._rows: List[Optional[weakref.ref]] = []
         self._free: List[int] = []
@@ -163,6 +234,12 @@ class FactorFleet:
         return sum(r is not None and r() is not None for r in self._rows)
 
     @property
+    def free_rows(self) -> int:
+        """Rows admittable without growing the stack: dead rows awaiting
+        reuse plus the capacity past the current end."""
+        return len(self._free) + max(self.capacity - len(self._rows), 0)
+
+    @property
     def bytes_per_row(self) -> int:
         if self.arrays is None:
             return 0
@@ -170,8 +247,17 @@ class FactorFleet:
 
     @property
     def device_bytes(self) -> int:
+        """The whole stack, dead rows and capacity slack included."""
         return 0 if self.arrays is None else \
             sum(_nbytes(x) for x in self.arrays)
+
+    @property
+    def resident_device(self) -> Optional[str]:
+        """Where the stack lives, read from its arrays (the pinned
+        device before the first admission)."""
+        if self.arrays is None:
+            return None if self.device is None else str(self.device)
+        return str(self.arrays.lnbr.device)
 
     def _row_died(self, ref: weakref.ref) -> None:
         row = self._ref2row.pop(ref, None)
@@ -287,6 +373,49 @@ class FactorFleet:
                 self._rows[row] = ref
         return rows
 
+    def compact(self) -> int:
+        """Rebuild the stack to its live rows: one gather per field down
+        to the live set, capacity re-padded to ``pow2(live)``.  Live
+        handles' ``fleet_row`` is rewritten and ``generation`` bumped so
+        an engine re-syncs its lanes' factor indices before its next
+        step.  Row contents are copied verbatim, so every live handle's
+        solve is bit-identical before and after.  ``f_rows``/``b_rows``
+        (the per-level row maxima) keep the values of every member ever
+        admitted, as the reference keeps its level ceilings: a sweep then
+        may launch rows for which no live member has work, which changes
+        no result.  Returns the number of freed stack rows."""
+        if self.arrays is None:
+            return 0
+        live: List[Tuple[int, "PreconditionerHandle"]] = []
+        for i, r in enumerate(self._rows):
+            h = r() if r is not None else None
+            if h is not None:
+                live.append((i, h))
+        old_cap = self.capacity
+        new_cap = max(_next_pow2(len(live)), 1)
+        if new_cap >= old_cap:
+            return 0
+        a = self.arrays
+        ix = torch.tensor([i for i, _ in live], dtype=torch.int64,
+                          device=a.lnbr.device)
+        fill = dict(fstart=self.n_pad, bstart=self.n_pad, fnlv=1, bnlv=1)
+        self.arrays = FleetArrays(**{
+            name: _grow(x[ix], (new_cap,) + tuple(x.shape[1:]),
+                        value=fill.get(name, 0))
+            for name, x in zip(a._fields, a)})
+        freed = old_cap - new_cap
+        self._ref2row.clear()               # retire old refs (their
+        self._free = []                     # callbacks become no-ops)
+        self._rows = []
+        for new_row, (_, h) in enumerate(live):
+            h.fleet_row = new_row
+            ref = weakref.ref(h, self._row_died)
+            self._ref2row[ref] = new_row
+            self._rows.append(ref)
+        self.generation += 1
+        self.compactions += 1
+        return freed
+
 
 @dataclasses.dataclass(eq=False)
 class PreconditionerHandle:
@@ -302,6 +431,10 @@ class PreconditionerHandle:
     graph_id: str = ""
     family: str = "ac"
     construct_s: float = 0.0
+    born_s: float = 0.0
+    born_tick: int = 0
+    ttl_s: Optional[float] = None
+    max_age_ticks: Optional[int] = None
 
     @property
     def n(self) -> int:
@@ -340,6 +473,13 @@ class PreconditionerHandle:
                           device=self.device)
         out[:, :self.n] = B
         return out
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """``L x`` through the handle's fleet row (the adjacency rows
+        already in the bucket stack)."""
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        return fleet_matvec(self.fleet.arrays, self._fidx(1),
+                            self._pad(x[None]))[0, :self.n]
 
     def precondition(self, r: torch.Tensor) -> torch.Tensor:
         """``r -> (G D Gᵀ)⁺ r`` for ``r`` of shape ``(n,)`` or
@@ -380,23 +520,35 @@ FactorHandle = PreconditionerHandle
 
 
 class FactorCache:
-    """Multi-tenant factor-once / solve-many frontend (AC family).
+    """Multi-tenant factor-once / solve-many frontend.
 
-    ``factor`` (or ``factor_batched`` / ``attach``) admits handles keyed
-    by graph fingerprint; ``solve(graph_id, B)`` routes a rhs to its
-    factor.  Admission evicts least-recently-used handles while the summed
-    ``device_bytes`` exceeds ``memory_budget_bytes`` (or the handle count
-    exceeds ``max_handles``) — the newest handle is never evicted.
-    ``k_tiering`` sub-buckets fleets by the pow2 panel width so one wide
-    factor does not widen its bucket-mates' sweeps.  Everything runs on
-    ``device`` (the GPU unless the CPU is asked for).
+    ``factor`` (or ``factor_batched`` / ``attach`` / ``adopt``) admits
+    handles keyed by graph fingerprint; ``solve(graph_id, B)`` routes a
+    rhs to its factor.  Admission evicts least-recently-used handles while
+    the summed ``device_bytes`` exceeds ``memory_budget_bytes`` (or the
+    handle count exceeds ``max_handles``) — the newest handle is never
+    evicted.  ``k_tiering`` sub-buckets fleets by the pow2 panel width so
+    one wide factor does not widen its bucket-mates' sweeps.
+
+    Staleness: handles admitted with ``ttl_s`` (seconds, against the
+    injected ``clock``) or ``max_age_ticks`` (service ticks, advanced by
+    ``advance_ticks`` — a serving engine calls it once per tick) expire
+    on the next lookup or admission sweep.  After evictions and expiries
+    a fleet whose free rows reach ``compact_threshold`` of its capacity
+    is compacted.  Everything runs on ``device`` (the GPU unless the CPU
+    is asked for).
     """
 
     def __init__(self, *, chunk: int = 64, fill_slack: int = 32,
                  strict: bool = True, max_retries: int = 3,
                  dtype=np.float32, memory_budget_bytes: Optional[int] = None,
-                 max_handles: Optional[int] = None, k_tiering: bool = True,
-                 device=None):
+                 max_handles: Optional[int] = None,
+                 ttl_s: Optional[float] = None,
+                 max_age_ticks: Optional[int] = None,
+                 k_tiering: bool = True,
+                 compact_threshold: Optional[float] = 0.5,
+                 device=None, clock: Optional[Callable[[], float]] = None,
+                 flight=None):
         self.chunk = chunk
         self.fill_slack = fill_slack
         self.strict = strict
@@ -404,42 +556,137 @@ class FactorCache:
         self.dtype = dtype
         self.memory_budget_bytes = memory_budget_bytes
         self.max_handles = max_handles
+        self.ttl_s = ttl_s
+        self.max_age_ticks = max_age_ticks
         self.k_tiering = k_tiering
+        self.compact_threshold = compact_threshold
         self.device = resolve_device(device)
+        self._clock = clock if clock is not None else time.monotonic
+        self.now_ticks = 0
+        # one-way latch: True once any handle carries a staleness policy,
+        # so sweep_stale() stays O(1) for caches that never use one
+        self._has_mortal = False
         self._handles: "OrderedDict[str, PreconditionerHandle]" = \
             OrderedDict()
         self._fleets: Dict[Tuple[str, int, int], FactorFleet] = {}
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.expirations = 0
+        self.compactions = 0
+        self.adoptions = 0
+        fl = flight if flight is not None else NULL_FLIGHT
+        self._ev_cache_evict = fl.bind("cache_evict")
+        self._ev_cache_expire = fl.bind("cache_expire")
+        self._ev_compaction = fl.bind("compaction")
+        self._ev_adopt = fl.bind("adopt")
+
+    # -- staleness ----------------------------------------------------------
+    def advance_ticks(self, k: int = 1) -> None:
+        """Advance the service tick clock (engines call this per tick)."""
+        self.now_ticks += k
+
+    def _stale(self, h: PreconditionerHandle, now_s: float) -> bool:
+        if h.ttl_s is not None and now_s - h.born_s > h.ttl_s:
+            return True
+        if h.max_age_ticks is not None and \
+                self.now_ticks - h.born_tick > h.max_age_ticks:
+            return True
+        return False
+
+    def _refresh_policy(self, h: PreconditionerHandle, ttl_s,
+                        max_age_ticks) -> None:
+        """Explicit staleness arguments on a cache hit re-admit the
+        handle: its policy is replaced and its birth stamps reset."""
+        if ttl_s is _UNSET and max_age_ticks is _UNSET:
+            return
+        if ttl_s is not _UNSET:
+            h.ttl_s = ttl_s
+        if max_age_ticks is not _UNSET:
+            h.max_age_ticks = max_age_ticks
+        h.born_s = self._clock()
+        h.born_tick = self.now_ticks
+        if h.ttl_s is not None or h.max_age_ticks is not None:
+            self._has_mortal = True
+
+    def sweep_stale(self) -> int:
+        """Evict every expired handle; returns how many were evicted."""
+        if not self._has_mortal:
+            return 0
+        now_s = self._clock()
+        stale = [gid for gid, h in self._handles.items()
+                 if self._stale(h, now_s)]
+        for gid in stale:
+            del self._handles[gid]
+            self.expirations += 1
+            self._ev_cache_expire(gid=gid)
+        if stale:
+            self._maybe_compact()
+        return len(stale)
+
+    def _compact_fleet(self, fleet: FactorFleet) -> bool:
+        if not fleet.compact():
+            return False
+        self.compactions += 1
+        self._ev_compaction(family=fleet.family, n_pad=fleet.n_pad,
+                            k_tier=fleet.k_tier)
+        return True
+
+    def _maybe_compact(self) -> int:
+        """Compact every fleet whose free-row share reached
+        ``compact_threshold``; returns how many were compacted."""
+        if self.compact_threshold is None:
+            return 0
+        return sum(self._compact_fleet(f) for f in self._fleets.values()
+                   if f.capacity
+                   and f.free_rows / f.capacity >= self.compact_threshold)
+
+    def compact(self) -> int:
+        """Compact every fleet to its live rows, threshold ignored;
+        returns how many fleets shrank."""
+        return sum(self._compact_fleet(f) for f in self._fleets.values())
 
     # -- admission ----------------------------------------------------------
-    def factor(self, g: Graph, key, *,
-               graph_id: Optional[str] = None) -> PreconditionerHandle:
-        """Factor ``g`` with the raw uint32[2] ``key`` and admit the handle
-        (a cache hit if the same ``(graph, key)`` is live)."""
-        gid = graph_id if graph_id is not None else graph_fingerprint(g, key)
+    def factor(self, g: Graph, key, *, graph_id: Optional[str] = None,
+               family: str = "ac", precond_params: Optional[Dict] = None,
+               ttl_s=_UNSET, max_age_ticks=_UNSET) -> PreconditionerHandle:
+        """Construct a preconditioner for ``g`` (``key``: the raw
+        uint32[2] factorization key) and admit the handle — a cache hit
+        if the same ``(graph, key, family, params)`` is live and fresh.
+        Raises ``KeyError`` for an unregistered ``family``."""
+        self.sweep_stale()
+        fam = get_family(family)
+        params = dict(precond_params or {})
+        gid = graph_id if graph_id is not None else graph_fingerprint(
+            g, key if family == "ac" else None, family=family,
+            params=params)
         got = self._handles.get(gid)
         if got is not None:
             self.hits += 1
             self._handles.move_to_end(gid)
+            self._refresh_policy(got, ttl_s, max_age_ticks)
             return got
         self.misses += 1
         t0 = time.perf_counter()
-        f = factorize_wavefront(g, key, chunk=self.chunk,
-                                fill_slack=self.fill_slack,
-                                strict=self.strict,
-                                max_retries=self.max_retries,
-                                dtype=self.dtype, device=self.device)
-        handle = self.attach(g, f, graph_id=gid)
+        if family == "ac":
+            f = factorize_wavefront(
+                g, key, chunk=self.chunk, fill_slack=self.fill_slack,
+                strict=self.strict, max_retries=self.max_retries,
+                dtype=self.dtype, device=self.device, **params)
+        else:
+            f = fam.build(g, key, dtype=self.dtype, **params)
+        handle = self.attach(g, f, graph_id=gid, family=family,
+                             ttl_s=ttl_s, max_age_ticks=max_age_ticks)
         handle.construct_s = time.perf_counter() - t0
         return handle
 
     def factor_batched(self, gs: Sequence[Graph], keys, *,
-                       graph_ids: Optional[Sequence[str]] = None
+                       graph_ids: Optional[Sequence[str]] = None,
+                       ttl_s=_UNSET, max_age_ticks=_UNSET
                        ) -> List[PreconditionerHandle]:
         """Admit a fleet: graphs not already cached factor together in one
         batched engine run, their schedules in one batched pass."""
+        self.sweep_stale()
         gs = list(gs)
         keys = [np.asarray(k, np.uint32).reshape(2) for k in
                 (keys if isinstance(keys, (list, tuple))
@@ -449,6 +696,10 @@ class FactorCache:
         todo = [i for i, gid in enumerate(gids) if gid not in self._handles]
         self.hits += len(gs) - len(todo)
         self.misses += len(todo)
+        for gid in set(gids) - {gids[i] for i in todo}:
+            self._refresh_policy(self._handles[gid], ttl_s, max_age_ticks)
+        # strong refs for the whole call: a tight budget may evict a
+        # sibling mid-admission, and the caller still gets every handle
         fleet = {gid: self._handles[gid] for gid in gids
                  if gid in self._handles}
         if todo:
@@ -458,45 +709,87 @@ class FactorCache:
                 strict=self.strict, max_retries=self.max_retries,
                 dtype=self.dtype, with_schedules=True, device=self.device)
             fleet.update(self._attach_many(
-                [(gs[i], f, sch, gids[i])
-                 for i, f, sch in zip(todo, fs, scheds)]))
+                [(gs[i], f, sch, gids[i], "ac")
+                 for i, f, sch in zip(todo, fs, scheds)],
+                ttl_s=ttl_s, max_age_ticks=max_age_ticks))
         for gid in gids:
             if gid in self._handles:
                 self._handles.move_to_end(gid)
         return [fleet[gid] for gid in gids]
 
     def attach(self, g: Graph, f: ACFactor, *,
-               graph_id: Optional[str] = None,
+               graph_id: Optional[str] = None, family: str = "ac",
                schedules: Optional[Tuple[PackedSchedule,
-                                         PackedSchedule]] = None
-               ) -> PreconditionerHandle:
+                                         PackedSchedule]] = None,
+               ttl_s=_UNSET, max_age_ticks=_UNSET) -> PreconditionerHandle:
         """Wrap an existing factor (the sequential oracle's, one carried
         across from the reference package by ``convert``, ...) in a solve
         handle and admit it to its fleet — no re-construction."""
-        gid = graph_id if graph_id is not None else graph_fingerprint(g)
-        (_, handle), = self._attach_many([(g, f, schedules, gid)])
+        gid = graph_id if graph_id is not None else graph_fingerprint(
+            g, family=family)
+        (_, handle), = self._attach_many([(g, f, schedules, gid, family)],
+                                         ttl_s=ttl_s,
+                                         max_age_ticks=max_age_ticks)
         return handle
 
-    def _attach_many(self, items) -> List[Tuple[str, PreconditionerHandle]]:
-        """Admit ``(graph, factor, schedules|None, gid)`` items, grouped by
-        fleet so each stack grows once; the budget sweep runs at the end."""
+    def adopt(self, g: Graph, f: ACFactor, *, graph_id: str,
+              family: str = "ac",
+              schedules: Optional[Tuple[PackedSchedule,
+                                        PackedSchedule]] = None,
+              construct_s: float = 0.0, ttl_s=_UNSET,
+              max_age_ticks=_UNSET) -> PreconditionerHandle:
+        """Admit a factor constructed elsewhere (another cache, another
+        process, the reference package through ``convert``): transfer to
+        this cache's device and fleet admission only, never a factor.  A
+        live fresh handle for ``graph_id`` is a hit (adopt is
+        idempotent); ``construct_s`` records the construction time
+        spent where the factor was built."""
+        self.sweep_stale()
+        got = self._handles.get(graph_id)
+        if got is not None:
+            self.hits += 1
+            self._handles.move_to_end(graph_id)
+            self._refresh_policy(got, ttl_s, max_age_ticks)
+            return got
+        handle = self.attach(g, f, graph_id=graph_id, family=family,
+                             schedules=schedules, ttl_s=ttl_s,
+                             max_age_ticks=max_age_ticks)
+        handle.construct_s = construct_s
+        self.adoptions += 1
+        self._ev_adopt(gid=graph_id, family=family, construct_s=construct_s)
+        return handle
+
+    def _attach_many(self, items, *, ttl_s=_UNSET, max_age_ticks=_UNSET
+                     ) -> List[Tuple[str, PreconditionerHandle]]:
+        """Admit ``(graph, factor, schedules|None, gid, family)`` items,
+        grouped by fleet so each stack grows once; the budget sweep runs
+        at the end."""
         built = []
-        for g, f, schedules, gid in items:
+        for g, f, schedules, gid, family in items:
+            fam = get_family(family)
+            if fam.kind != "factor":
+                raise ValueError(f"family {family!r}: the {fam.kind!r} "
+                                 f"apply kind is not in the port yet")
             dev = f.to_device(self.device)
             if schedules is None:
                 schedules = build_schedules_batched([dev])[0]
             fwd, bwd = schedules
             pf = _PaddedFactor(g, dev, fwd, bwd)
             k_tier = pad_k(max(fwd.K, bwd.K)) if self.k_tiering else 0
-            fkey = ("ac", pf.n_pad, k_tier)
+            fkey = (family, pf.n_pad, k_tier)
             fleet = self._fleets.get(fkey)
             if fleet is None:
                 fleet = self._fleets[fkey] = FactorFleet(
-                    pf.n_pad, k_tier=k_tier, device=self.device)
+                    pf.n_pad, family=family, kind=fam.kind, k_tier=k_tier,
+                    device=self.device)
             handle = PreconditionerHandle(
                 graph=g, factor=f, fleet=fleet, fleet_row=-1,
                 n_levels_fwd=fwd.n_levels, n_levels_bwd=bwd.n_levels,
-                graph_id=gid)
+                graph_id=gid, family=family, born_s=self._clock(),
+                born_tick=self.now_ticks,
+                ttl_s=self.ttl_s if ttl_s is _UNSET else ttl_s,
+                max_age_ticks=(self.max_age_ticks if max_age_ticks is _UNSET
+                               else max_age_ticks))
             built.append((fleet, handle, pf, gid))
         by_fleet: Dict[Tuple[str, int, int], list] = {}
         for fleet, handle, pf, _ in built:
@@ -508,6 +801,8 @@ class FactorCache:
                 handle.fleet_row = row
         out = []
         for _, handle, _, gid in built:
+            if handle.ttl_s is not None or handle.max_age_ticks is not None:
+                self._has_mortal = True
             self._handles[gid] = handle
             self._handles.move_to_end(gid)
             out.append((gid, handle))
@@ -517,16 +812,47 @@ class FactorCache:
     def _shrink(self) -> None:
         """Evict LRU handles until the budget/count bounds hold (the newest
         handle always survives)."""
+        evicted = False
         while len(self._handles) > 1 and (
                 (self.max_handles is not None
                  and len(self._handles) > self.max_handles)
                 or (self.memory_budget_bytes is not None
                     and self.device_bytes > self.memory_budget_bytes)):
-            self._handles.popitem(last=False)
+            gid, _ = self._handles.popitem(last=False)
             self.evictions += 1
+            self._ev_cache_evict(gid=gid, reason="budget")
+            evicted = True
+        if evicted:
+            self._maybe_compact()
 
     # -- lookup / routing ---------------------------------------------------
+    def peek(self, graph_id: str) -> Optional[PreconditionerHandle]:
+        """Lookup that neither sweeps staleness nor touches LRU order."""
+        return self._handles.get(graph_id)
+
+    def fresh(self, graph_id: str) -> bool:
+        """True iff ``graph_id`` has a live handle that the next lookup
+        would not sweep as stale (reads only)."""
+        h = self._handles.get(graph_id)
+        return h is not None and not self._stale(h, self._clock())
+
+    def capacity_probe(self) -> Dict[str, Optional[int]]:
+        """Read-only headroom snapshot: how much more factor state this
+        cache admits before evicting (``None`` where a bound is unset) and
+        the fleet rows reusable without growing a stack."""
+        handles = list(self._handles.values())
+        fleets = list(self._fleets.values())
+        used = sum(h.device_bytes for h in handles)
+        free_bytes = None if self.memory_budget_bytes is None else \
+            max(self.memory_budget_bytes - used, 0)
+        free_handles = None if self.max_handles is None else \
+            max(self.max_handles - len(handles), 0)
+        return dict(handles=len(handles), free_handles=free_handles,
+                    device_bytes=used, free_bytes=free_bytes,
+                    fleet_free_rows=sum(f.free_rows for f in fleets))
+
     def get(self, graph_id: str) -> PreconditionerHandle:
+        self.sweep_stale()
         handle = self._handles.get(graph_id)
         if handle is None:
             raise KeyError(f"no live factor for graph_id={graph_id!r} "
@@ -548,20 +874,58 @@ class FactorCache:
     def device_bytes(self) -> int:
         return sum(h.device_bytes for h in self._handles.values())
 
+    @property
+    def fleets(self) -> Dict[Tuple[str, int, int], FactorFleet]:
+        """Live fleets keyed by ``(family, n_pad, k_tier)`` (a copy)."""
+        return dict(self._fleets)
+
     def evict(self, graph_id: str) -> None:
         if self._handles.pop(graph_id, None) is not None:
             self.evictions += 1
+            self._ev_cache_evict(gid=graph_id, reason="explicit")
+            self._maybe_compact()
+
+    def clear(self) -> None:
+        self._handles.clear()
 
     def stats(self) -> Dict:
-        """Cache counters and device-memory accounting."""
-        fleets = list(self._fleets.values())
-        return dict(handles=len(self._handles), hits=self.hits,
+        """Cache counters and device-memory accounting: totals, per
+        family and per device the stack actually lives on, and the live
+        floor a compaction shrinks toward (``fleet_live_bytes``)."""
+        handles = list(self._handles.values())
+        fleet_items = list(self._fleets.items())
+        by_family_bytes: Dict[str, int] = {}
+        by_family_handles: Dict[str, int] = {}
+        for h in handles:
+            by_family_bytes[h.family] = \
+                by_family_bytes.get(h.family, 0) + h.device_bytes
+            by_family_handles[h.family] = \
+                by_family_handles.get(h.family, 0) + 1
+        fleet_by_family: Dict[str, int] = {}
+        fleet_by_device: Dict[str, int] = {}
+        for (family, _, _), f in fleet_items:
+            fleet_by_family[family] = \
+                fleet_by_family.get(family, 0) + f.device_bytes
+            dev = f.resident_device
+            if dev is not None and f.device_bytes:
+                fleet_by_device[dev] = \
+                    fleet_by_device.get(dev, 0) + f.device_bytes
+        return dict(handles=len(handles), hits=self.hits,
                     misses=self.misses, evictions=self.evictions,
-                    device=str(self.device), fleets=len(fleets),
-                    device_bytes=self.device_bytes,
-                    fleet_device_bytes=sum(f.device_bytes for f in fleets),
+                    expirations=self.expirations,
+                    compactions=self.compactions,
+                    adoptions=self.adoptions,
+                    device=str(self.device),
+                    fleet_device_bytes_by_device=fleet_by_device,
+                    fleets=len(fleet_items),
+                    device_bytes=sum(h.device_bytes for h in handles),
+                    fleet_device_bytes=sum(f.device_bytes
+                                           for _, f in fleet_items),
                     fleet_live_bytes=sum(f.live_rows * f.bytes_per_row
-                                         for f in fleets))
+                                         for _, f in fleet_items),
+                    handles_by_family=by_family_handles,
+                    device_bytes_by_family=by_family_bytes,
+                    fleet_device_bytes_by_family=fleet_by_family)
 
     def solve(self, graph_id: str, B, **kw) -> PCGResult:
         return self.get(graph_id).solve(B, **kw)

@@ -403,6 +403,64 @@ def test_fleet_lanes_do_not_depend_on_their_batch(dev):
         assert torch.equal(r1.x, rb.x[c])
 
 
+def test_engine_serves_two_buckets_bitwise_on_card(dev):
+    """The serving engine on the card: two factors of one bucket and one
+    of another, lanes of both factors of a bucket stepped together with
+    a partly empty slot set, through the engine and the async frontend;
+    every request bitwise equal to its direct solve, the level sweep
+    launched and nothing run on the CPU."""
+    import asyncio
+    from repro_torch.core.column_math import key_from_seed
+    from repro_torch.core.solver import FactorCache
+    from repro_torch.data import graphs
+    from repro_torch.serve import SolveEngine, SolveFrontend, SolveRequest
+    gs = {"a": graphs.grid2d(12, 12, seed=3), "b": graphs.grid2d(12, 12,
+                                                                 seed=8),
+          "pl": graphs.powerlaw(300, 5, seed=3)}
+    c = FactorCache(chunk=32, k_tiering=False, device=dev)
+    c.factor_batched(list(gs.values()), [key_from_seed(i) for i in range(3)],
+                     graph_ids=list(gs))
+    assert c.get("a").fleet is c.get("b").fleet
+    rng = np.random.default_rng(7)
+    spec = [("a", 2, 1e-6), ("b", 1, 1e-4), ("pl", 3, 1e-6), ("b", 2, 1e-6),
+            ("a", 1, 1e-5), ("pl", 1, 1e-4)]
+    blocks = [(gid, rng.normal(size=(nr, gs[gid].n)).astype(np.float32),
+               tol) for gid, nr, tol in spec]
+
+    def check(req):
+        ref = c.get(req.graph_id).solve(
+            torch.from_numpy(np.atleast_2d(req.b)).to(dev), tol=req.tol,
+            maxiter=req.maxiter)
+        assert req.status == "converged"
+        assert np.array_equal(np.atleast_2d(req.x).view(np.uint32),
+                              ref.x.cpu().numpy().view(np.uint32))
+        assert np.array_equal(np.atleast_1d(req.iters), ref.iters.cpu())
+        assert np.array_equal(np.atleast_1d(req.relres),
+                              ref.relres.cpu().numpy().astype(np.float64))
+
+    runtime.reset_launches()
+    eng = SolveEngine(c, slots=6, iters_per_tick=4)
+    reqs = [SolveRequest(rid=i, graph_id=gid, b=b, tol=tol, maxiter=300)
+            for i, (gid, b, tol) in enumerate(blocks)]
+    for r in reqs:
+        eng.submit(r)
+    assert len(eng.run_until_drained()) == len(reqs)
+
+    async def drive(fe):
+        return await asyncio.gather(*[fe.solve(gid, b, tol=tol, maxiter=300)
+                                      for gid, b, tol in blocks])
+
+    with SolveFrontend(SolveEngine(c, slots=6, iters_per_tick=4)) as fe:
+        served = asyncio.run(drive(fe))
+    launches = dict(runtime.LAUNCHES)
+    assert launches.get("ell_sweep_fleet", 0) > 0
+    assert launches.get("ell_spmv_fleet", 0) == 0
+    st = eng.stats()
+    assert st.buckets == st.step_compiles == 2
+    for r in reqs + served:
+        check(r)
+
+
 def test_spmv_wrappers_reject_bad_input(dev):
     c = torch.zeros((4, 3), dtype=torch.int32, device=dev)
     v = torch.zeros((4, 3), device=dev)
