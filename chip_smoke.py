@@ -153,6 +153,44 @@ to a plain version while a GPU is present):
            requests/s and column-iterations/s, latency p50/p99 and queue
            wait p50, and the device busy share of one full tick (8 lanes)
            from a torch.profiler trace.
+  cluster  the solve cluster through its entry points, after the earlier
+           phases' device state is released ([main]'s host factor kept):
+           SolveCluster with 2 solve replicas and 1 factor-tier replica,
+           all on cuda:0, affinity routing, 8 slots, 8 iterations a tick,
+           the main path's construction settings (chunk 256, fill_slack
+           32, strict) and hot-factor replication above 8 requests/s (1 s
+           window, copies live 600 s).  Two 64^3 graphs registered, not
+           factored: grid3d(64,64,64,'uniform',seed=2) (nnz-sort) under
+           key 0 and the same with seed=3 under key 1.  Launch counts reset
+           just before and read just after, a seeded 24-request trace
+           (requests 0 and 1 open on the two graphs, the rest 3/4 on the
+           first; every fourth a block of 4 right-hand sides, 42 columns;
+           tol 1e-6 and 1e-4 alternating, maxiter 500) submitted from a
+           pool of 4 threads, the tier worker's first take held until both
+           cold placements are queued (so they share one batch, as the
+           tests gate it), then the hot copy awaited, then a warm burst of
+           8 single right-hand sides on the first graph (tol 1e-6), which
+           the two holders split.  Every request must be routed and
+           converge, equal a direct handle.solve on the replica that
+           served it bit for bit (x, iters), and have true residuals below
+           1e-4; each solve replica must serve part of the warm burst; the
+           two cold placements must share one tier batch
+           (coalesced_factorizations >= 2); the first graph must
+           replicate at least once, with adoptions == tier
+           factorizations == 2 + replications; every resident factor of
+           the first graph (the primary and its copy) must equal [main]'s
+           bit for bit (col_ptr, rows, vals, D); step_compiles == buckets
+           on each replica; sample_clique_round must launch once per
+           engine round of the tier's constructions; ell_sweep_fleet's
+           count must equal the launches its callers asked for, tallied
+           per thread apart from the counter (one per non-empty level of
+           each sweep), and each replica's driver thread must have
+           launched it; no other kernel.  Printed: the tier's attempts,
+           batches and construction wall, each adoption's wall, requests/s,
+           column-iterations/s, latency p50/p99, queue wait p50, the worst
+           true residual per tol, the affinity hit rate, per-replica routed
+           counts, warm-burst requests and sweep launches, factors and
+           fleet bytes, and the peak allocated memory.
 
 The build phase also prints the number of HGMMA (wgmma) instructions in
 the attention library's SASS, where cuobjdump exists.
@@ -168,10 +206,12 @@ recurrentgemma-2b one), the card's name and power limit, and
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -1754,6 +1794,297 @@ def phase_serve(dev, main, card):
     log(f"[serve] phase passed in {time.time() - t_phase:.1f}s; {card}")
 
 
+# kernels that must not launch in the [cluster] phase: the factor tier's
+# construction runs the fused round, the replicas' ticks the fleet sweep
+CLUSTER_SILENT = ("sample_clique", "ell_spmv_fleet", "ell_sweep",
+                  "ell_sweep_multi", "ell_spmv", "ell_spmv_multi",
+                  "flash_attention")
+# hot-factor replication threshold of the [cluster] phase (requests per
+# second on one graph over the 1 s rate window): once the factors are
+# live the trace's 15 remaining requests on its first graph arrive within
+# a second and cross it, the second graph's 5 do not
+CLUSTER_REPLICATE_ABOVE = 8.0
+# single right-hand sides on the first graph once both replicas hold it
+CLUSTER_WARM = 8
+FACTOR_FIELDS = ("col_ptr", "rows", "vals", "D")
+
+
+def host_factor(f) -> dict:
+    """Copies of a factor's host CSC arrays and diagonal."""
+    import numpy as np
+    return {k: np.array(getattr(f, k)) for k in FACTOR_FIELDS}
+
+
+def same_factor(f, ref: dict) -> bool:
+    import numpy as np
+    return all(np.array_equal(np.asarray(getattr(f, k)).view(np.uint8),
+                              ref[k].view(np.uint8)) for k in FACTOR_FIELDS)
+
+
+def cluster_trace(n: int, gids):
+    """The [cluster] trace: 24 (graph id, rhs block, tol).  Requests 0 and
+    1 open on the two graphs (the burst whose cold placements share one
+    tier batch), the rest pick the first graph with probability 3/4
+    (seeded); requests 3, 7, ..., 23 are blocks of 4 right-hand sides
+    (42 columns in all); tol 1e-6 and 1e-4 alternate."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    out = []
+    for i in range(24):
+        gi = i if i < 2 else int(rng.random() >= 0.75)
+        nrhs = 4 if i % 4 == 3 else 1
+        b = rng.normal(size=(nrhs, n) if nrhs > 1 else n).astype(np.float32)
+        out.append((gids[gi], b, (1e-6, 1e-4)[i % 2]))
+    return out
+
+
+def timed_adopts(cl, record):
+    """Record (replica, graph id, seconds) of every adoption onto the
+    cluster's solve replicas: the driver-thread wall of ``cache.adopt``."""
+    for rep in cl.replicas:
+        adopt = rep.cache.adopt
+
+        def timed(g, f, *, _adopt=adopt, _i=rep.index, **kw):
+            t0 = time.perf_counter()
+            out = _adopt(g, f, **kw)
+            record.append((_i, kw["graph_id"], time.perf_counter() - t0))
+            return out
+        rep.cache.adopt = timed
+
+
+class SweepTally:
+    """While the ``with`` block runs, tallies per calling thread the
+    ``ell_sweep_fleet`` launches that its callers ask for (one per
+    non-empty level of each sweep, read from the call's ``level_rows``),
+    apart from the runtime's counter, so the counter's total under
+    concurrent threads can be held against it."""
+
+    def __init__(self):
+        self.by_thread = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import spmv
+        self._orig = orig = spmv.ell_sweep_fleet
+
+        def tallied(*args, **kw):
+            level_rows = args[7] if len(args) > 7 else kw["level_rows"]
+            tid = threading.get_ident()     # each thread writes its own key
+            self.by_thread[tid] = (self.by_thread.get(tid, 0)
+                                   + sum(1 for v in level_rows[1:] if v))
+            return orig(*args, **kw)
+        spmv.ell_sweep_fleet = tallied
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import spmv
+        spmv.ell_sweep_fleet = self._orig
+
+
+def phase_cluster(dev, g0, main_f, card):
+    """The [cluster] phase (see the module docstring)."""
+    import concurrent.futures as cf
+    import numpy as np
+    import torch
+    from repro_torch.core.column_math import key_from_seed
+    from repro_torch.data import graphs
+    from repro_torch.kernels import runtime
+    from repro_torch.obs import percentile
+    from repro_torch.serve import SolveCluster
+    from repro_torch.serve.cluster import factor_tier
+    t_phase = time.time()
+    g1 = permuted(graphs.grid3d(64, 64, 64, "uniform", seed=3))
+    gs = {"g64_s2": g0, "g64_s3": g1}
+    gids = list(gs)
+    # the tier worker's first take waits for the gate (as the tests'
+    # _gated_tier holds it), so both cold placements are queued when it
+    # takes; the worker enters its take when the cluster starts it
+    gate = threading.Event()
+    take = factor_tier.FactorTier._take_batch
+    factor_tier.FactorTier._take_batch = (
+        lambda self: (gate.wait(600), take(self))[1])
+    cl = None
+    adopts = []
+    try:
+        cl = SolveCluster(replicas=2, factor_replicas=1,
+                          devices=[dev] * 3, routing="affinity",
+                          slots=8, iters_per_tick=8,
+                          replicate_above=CLUSTER_REPLICATE_ABOVE,
+                          replica_ttl_s=600.0,
+                          cache_kw=dict(chunk=256, fill_slack=32,
+                                        strict=True))
+        for i, (gid, g) in enumerate(gs.items()):
+            cl.register(g, key_from_seed(i), graph_id=gid)
+        timed_adopts(cl, adopts)
+        trace = cluster_trace(g0.n, gids)
+        rng = np.random.default_rng(5)
+        warm = [rng.normal(size=g0.n).astype(np.float32)
+                for _ in range(CLUSTER_WARM)]
+        cols = sum(np.atleast_2d(b).shape[0] for _, b, _ in trace)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        runtime.reset_launches()
+        with FactorProbe() as probe, SweepTally() as tally:
+            t0 = time.perf_counter()
+            # submitted from a pool: a cold submit waits for its factor to
+            # land, a warm one only queues its request
+            with cf.ThreadPoolExecutor(max_workers=4) as pool:
+                subs = [pool.submit(cl.submit, gid, b, tol=tol, maxiter=500)
+                        for gid, b, tol in trace]
+                t_wait = time.time()
+                while (cl.factor_tier.queue_depth < 2
+                       and time.time() - t_wait < 60):
+                    time.sleep(0.01)
+                queued = cl.factor_tier.queue_depth
+                gate.set()
+                futs = [f.result(timeout=600) for f in subs]
+            done = [f.result(timeout=600) for f in futs]
+            t_trace = time.perf_counter() - t0
+            check(queued == 2, f"cluster: {queued} cold placements queued "
+                               f"at the tier's first take, not 2")
+            check(cl.drain(timeout=300), "cluster: the replicas did not "
+                                         "drain")
+            # the hot copy's construction and adoption outlast the trace
+            t_wait = time.time()
+            while cl.factor_tier.queue_depth and time.time() - t_wait < 300:
+                time.sleep(0.05)
+            holders0 = [rep for rep in cl.replicas
+                        if rep.cache.peek(gids[0])]
+            check(len(holders0) == 2, "cluster: the hot copy never landed")
+            # both replicas hold the first graph: least-loaded among the
+            # holders splits a burst between them
+            t1 = time.perf_counter()
+            wfuts = [cl.submit(gids[0], b, tol=1e-6, maxiter=500)
+                     for b in warm]
+            warm_done = [f.result(timeout=600) for f in wfuts]
+            t_warm = time.perf_counter() - t1
+            check(cl.drain(timeout=300), "cluster: the replicas did not "
+                                         "drain after the warm burst")
+            torch.cuda.synchronize()
+        launches = dict(runtime.LAUNCHES)
+        st = cl.stats()
+        tier = st.factor_tier
+        peak = torch.cuda.max_memory_allocated(dev)
+        rounds = sum(a["rounds_run"] for a in probe.attempts)
+        for k, a in enumerate(probe.attempts):
+            log(f"[cluster] tier attempt {k + 1}: B={len(a['overflow'])} "
+                f"fill_slack={a['fill_slack']} W={a['W']} rounds run="
+                f"{a['rounds_run']} overflow={a['overflow']} wall "
+                f"{a['seconds']:.3f}s")
+        w = tier["per_replica"][0]
+        log(f"[cluster] factor tier: {w['batches']} batches, "
+            f"{w['factored']} factors ({tier['coalesced_factorizations']} "
+            f"coalesced) in {w['factor_s']:.2f}s of construction wall, "
+            f"{rounds} engine rounds; device {w['device']}; {card}")
+        for i, gid, s in adopts:
+            log(f"[cluster] adoption of {gid} onto replica {i}: {s:.3f}s")
+        sweeps = {rep.index: tally.by_thread.get(rep.frontend._thread.ident,
+                                                 0)
+                  for rep in cl.replicas}
+        log(f"[cluster] launches: {launches}; ell_sweep_fleet asked for "
+            f"per replica driver thread: {sweeps}, "
+            f"{sum(tally.by_thread.values())} on {len(tally.by_thread)} "
+            f"threads in all")
+        check(tier["factor_queue_depth"] == 0,
+              "cluster: the factor tier did not finish its queue")
+        check(launches.get("sample_clique_round", 0) > 0
+              and launches.get("ell_sweep_fleet", 0) > 0,
+              "cluster: sample_clique_round or ell_sweep_fleet never "
+              "launched")
+        check(launches.get("sample_clique_round", 0) == rounds,
+              f"cluster: sample_clique_round launched "
+              f"{launches.get('sample_clique_round', 0)} times for "
+              f"{rounds} engine rounds")
+        check(launches.get("ell_sweep_fleet", 0)
+              == sum(tally.by_thread.values()),
+              f"cluster: ell_sweep_fleet counted "
+              f"{launches.get('ell_sweep_fleet', 0)} launches, its callers "
+              f"asked for {sum(tally.by_thread.values())}")
+        check(all(v > 0 for v in sweeps.values()),
+              f"cluster: a replica's driver thread launched no sweep "
+              f"({sweeps})")
+        for name in CLUSTER_SILENT:
+            check(launches.get(name, 0) == 0,
+                  f"cluster: the {name} kernel launched")
+        n_req = len(trace) + CLUSTER_WARM
+        check(len(done) == len(trace) and st.submitted == st.routed == n_req
+              and st.shed == 0, "cluster: a request was not routed")
+        warm_by = [sum(r.replica == rep.index for r in warm_done)
+                   for rep in cl.replicas]
+        check(all(warm_by), f"cluster: the warm burst was served only by "
+                            f"one replica ({warm_by})")
+        check(tier["coalesced_factorizations"] >= 2,
+              "cluster: the two cold placements did not share a batch")
+        check(st.replications >= 1, "cluster: the hot graph never "
+                                    "replicated")
+        factored = sum(x["factored"] for x in tier["per_replica"])
+        check(st.adoptions == factored == 2 + st.replications,
+              f"cluster: {st.adoptions} adoptions, {factored} tier "
+              f"factorizations, {st.replications} replications")
+        for rep in holders0:
+            check(same_factor(rep.cache.peek(gids[0]).factor, main_f),
+                  f"cluster: replica {rep.index}'s factor of {gids[0]} "
+                  f"differs from the [main] factor")
+        for rep in cl.replicas:
+            es = rep.frontend.stats().engine
+            check(es.step_compiles == es.buckets,
+                  f"cluster: replica {rep.index} step signatures "
+                  f"{es.step_compiles} != buckets {es.buckets}")
+        worst = {}
+        served = trace + [(gids[0], b, 1e-6) for b in warm]
+        for i, ((gid, b, tol), r) in enumerate(zip(served,
+                                                   done + warm_done)):
+            check(r.status == "converged",
+                  f"cluster: request {i} ended {r.status!r}")
+            h = cl.replicas[r.replica].cache.peek(gid)
+            ref = h.solve(torch.from_numpy(np.atleast_2d(b)).to(dev),
+                          tol=tol, maxiter=500)
+            check(np.array_equal(np.atleast_2d(r.x).view(np.uint32),
+                                 ref.x.cpu().numpy().view(np.uint32))
+                  and np.array_equal(np.atleast_1d(r.iters),
+                                     ref.iters.cpu().numpy()),
+                  f"cluster: request {i} differs from a direct solve on "
+                  f"replica {r.replica}")
+            for x, bb in zip(np.atleast_2d(r.x), np.atleast_2d(b)):
+                rr = true_relres(gs[gid], x, bb)
+                worst[tol] = max(worst.get(tol, 0.0), rr)
+                check(np.all(np.isfinite(x)) and rr < 1e-4,
+                      f"cluster: request {i} true residual {rr:.2e} at "
+                      f"tol {tol:.0e}")
+        col_iters = sum(int(np.sum(r.iters)) for r in done)
+        lat = [r.latency_s for r in done]
+        log(f"[cluster] {len(done)} requests ({cols} columns) in "
+            f"{t_trace:.3f}s: {len(done) / t_trace:.3f} requests/s, "
+            f"{col_iters / t_trace:.1f} column-iterations/s ({col_iters} "
+            f"column-iterations); latency p50 {percentile(lat, 50):.3f}s "
+            f"p99 {percentile(lat, 99):.3f}s, queue wait p50 "
+            f"{percentile([r.queue_wait_s for r in done], 50):.3f}s; "
+            f"worst true residual "
+            + ", ".join(f"{v:.2e} at tol {t:.0e}"
+                        for t, v in sorted(worst.items()))
+            + f"; {card}")
+        wlat = [r.latency_s for r in warm_done]
+        log(f"[cluster] warm burst: {CLUSTER_WARM} requests on {gids[0]} "
+            f"in {t_warm:.3f}s, served per replica {warm_by}, latency p50 "
+            f"{percentile(wlat, 50):.3f}s p99 {percentile(wlat, 99):.3f}s; "
+            f"{card}")
+        log(f"[cluster] routing: hit rate {st.hit_rate:.3f} (hits "
+            f"{st.affinity_hits}, misses {st.affinity_misses}), "
+            f"replications {st.replications} (above "
+            f"{CLUSTER_REPLICATE_ABOVE} req/s), dedups {st.factor_dedups}, "
+            f"adoptions {st.adoptions}; per replica: "
+            + "; ".join(f"{r.index} routed {r.routed}, device {r.device}, "
+                        f"{r.cache['handles']} factors, fleet bytes "
+                        f"{r.cache['fleet_device_bytes']}"
+                        for r in st.per_replica)
+            + f"; peak allocated {peak / 2**30:.2f} GiB")
+    finally:
+        gate.set()
+        factor_tier.FactorTier._take_batch = take
+        if cl is not None:
+            cl.close(drain=False)
+    log(f"[cluster] phase passed in {time.time() - t_phase:.1f}s; {card}")
+
+
 def device_ms_per_launch(fn, n: int = 20, tries: int = 3):
     """Device time of one call of ``fn`` (one kernel launch): the busy
     time of ``n`` back-to-back calls in one trace over ``n``, so the host's
@@ -2129,6 +2460,13 @@ def main() -> None:
     kernels += attention_timing(dev, attn)
     apply_timing(dev, main_res, slabs)
     phase_serve(dev, main_res, card)
+    # release the earlier phases' device state; [main]'s host factor stays
+    # for the [cluster] phase's comparison
+    main_f = host_factor(main_res["handle"].factor)
+    del main_res, spmv_errs, lib_res, slabs, attn
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_cluster(dev, g64, main_f, card)
     log(f"[done] all phases passed in {time.time() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": [{k: r[k] for k in ROW_KEYS + EXTRA_KEYS
                                    if k in r} for r in kernels]}))

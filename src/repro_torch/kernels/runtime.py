@@ -47,8 +47,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v"]
 
 # launches per kernel since the last reset; a wrapper adds one exactly
-# where it launches its kernel
+# where it launches its kernel.  Serving threads (a cluster's replica
+# drivers and factor workers) launch concurrently, so every update holds
+# _COUNT_LOCK: a read-modify-write of the dict is not atomic.
 LAUNCHES: Dict[str, int] = {}
+_COUNT_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -67,12 +70,14 @@ def resolve_device(device=None) -> torch.device:
 def count_launch(name: str, n: int = 1) -> None:
     """Add ``n`` launches of ``name`` (a C entry point that loops over
     levels reports how many it made)."""
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + n
+    with _COUNT_LOCK:
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + n
 
 
 def reset_launches() -> None:
-    for k in list(LAUNCHES):
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def nvcc() -> str:

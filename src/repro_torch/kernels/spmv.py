@@ -60,13 +60,34 @@ def ell_spmv_plain(cols, vals, x) -> torch.Tensor:
     contracts into FMAs.  The float64 product of two float32 values is
     exact, so only the final sum is rounded (twice, 53 then 24 bits, which
     differs from one rounding only at exact ties of the second).  A column
-    of a block is summed exactly as that column alone."""
+    of a block is summed exactly as that column alone.  CPU tensors are
+    summed by :func:`_row_sums_np` on their memory, the same operations
+    without a torch dispatch per step."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(_row_sums_np(cols.numpy(), vals.numpy(),
+                                             x.numpy()))
+    return _row_sums_torch(cols, vals, x)
+
+
+def _row_sums_torch(cols, vals, x) -> torch.Tensor:
+    """:func:`ell_spmv_plain` on tensors of any device."""
     shape = tuple(vals.shape) + (1,) * (x.dim() - 1)
     prod = vals.double().reshape(shape) * x[cols.long()].double()
     acc = torch.zeros(prod.shape[:1] + prod.shape[2:], dtype=x.dtype,
                       device=x.device)
     for k in range(cols.shape[1]):
         acc = (acc.double() + prod[:, k]).to(x.dtype)
+    return acc
+
+
+def _row_sums_np(cols, vals, x) -> np.ndarray:
+    """:func:`_row_sums_torch` on numpy arrays: the same exact float64
+    products, float64 sums and float32 roundings, step for step."""
+    shape = vals.shape + (1,) * (x.ndim - 1)
+    prod = vals.astype(np.float64).reshape(shape) * x[cols].astype(np.float64)
+    acc = np.zeros(prod.shape[:1] + prod.shape[2:], dtype=x.dtype)
+    for k in range(cols.shape[1]):
+        acc = (acc + prod[:, k]).astype(x.dtype)
     return acc
 
 
@@ -92,7 +113,19 @@ def ell_sweep_fleet_plain(cols, vals, lens, rows, starts, fidx, y,
     length hold 0.0 and add exactly nothing), subtracted and scattered
     back."""
     _check_sweep_shapes(cols, vals, lens, rows, starts, fidx, y, level_rows)
-    fl = fidx.tolist()
+    args = (cols, vals, lens, rows, starts, y)
+    if y.device.type == "cpu":
+        # numpy views of the same memory, so the sweep still lands in y
+        _sweep_levels(*(t.numpy() for t in args), fidx.tolist(), level_rows,
+                      _row_sums_np)
+    else:
+        _sweep_levels(*args, fidx.tolist(), level_rows, _row_sums_torch)
+
+
+def _sweep_levels(cols, vals, lens, rows, starts, y, fl, level_rows,
+                  row_sums) -> None:
+    """:func:`ell_sweep_fleet_plain`'s level loop, in place on tensors or
+    on numpy arrays; ``row_sums`` is the matching row sum."""
     for lv in range(1, len(level_rows)):
         if not level_rows[lv]:
             continue
@@ -100,10 +133,12 @@ def ell_sweep_fleet_plain(cols, vals, lens, rows, starts, fidx, y,
             lo, hi = int(starts[f, lv]), int(starts[f, lv + 1])
             if hi <= lo:
                 continue
-            r = rows[f, lo:hi].long()
+            r = rows[f, lo:hi]
+            if torch.is_tensor(r):
+                r = r.long()
             k = int(lens[f, r].max())
             if k:
-                y[lane, r] = y[lane, r] - ell_spmv_plain(
+                y[lane, r] = y[lane, r] - row_sums(
                     cols[f, r, :k], vals[f, r, :k], y[lane])
 
 

@@ -27,6 +27,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread per test process: the suite's files run side by
+# side in parallel processes
+torch.set_num_threads(1)
 import jax.numpy as jnp                                        # noqa: E402
 
 from repro.kernels import ref as kref                          # noqa: E402

@@ -8,6 +8,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread per test process: the suite's files run side by
+# side in parallel processes
+torch.set_num_threads(1)
 
 from repro_torch.core.column_math import key_from_seed         # noqa: E402
 from repro_torch.core.pcg import fleet_precondition            # noqa: E402
@@ -132,6 +135,25 @@ def test_sweep_equals_full_row_composition(fleet, half):
     alone = ops.trisolve_fleet(cols, vals, lens, rows, starts, fidx[:1],
                                y[:1], level_rows=level_rows)
     assert torch.equal(_bits(alone[0]), _bits(got[0]))
+
+
+@pytest.mark.parametrize("half", [0, 1], ids=["fwd", "bwd"])
+def test_plain_sweep_on_tensors_equals_numpy_route(fleet, half):
+    """The plain sweep's level loop on tensors with the torch row sums
+    (its route on the card) equals its CPU route on numpy views, bit for
+    bit."""
+    fl, hs, levels = fleet
+    _, cols, vals, _, lens, rows, starts = _halves(fl.arrays, levels)[half]
+    level_rows = fl.f_rows if half == 0 else fl.b_rows
+    fidx, y = _lanes(fl, hs, FIDX, seed=half)
+    want = y.clone()
+    spmv.ell_sweep_fleet_plain(cols, vals, lens, rows, starts, fidx, want,
+                               level_rows)
+    got = y.clone()
+    spmv._sweep_levels(cols, vals, lens, rows, starts, got, fidx.tolist(),
+                       level_rows, spmv._row_sums_torch)
+    assert torch.equal(_bits(got), _bits(want))
+    assert not torch.equal(got, y)
 
 
 def test_one_level_of_the_sweep(fleet):

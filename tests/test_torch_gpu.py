@@ -7,6 +7,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread per test process: the suite's files run side by
+# side in parallel processes
+torch.set_num_threads(1)
 
 from repro_torch.kernels import flash_attention as fa          # noqa: E402
 from repro_torch.kernels import runtime                        # noqa: E402
@@ -459,6 +462,84 @@ def test_engine_serves_two_buckets_bitwise_on_card(dev):
     assert st.buckets == st.step_compiles == 2
     for r in reqs + served:
         check(r)
+
+
+def _cluster_on_cards(devices):
+    """Two solve replicas and one factor replica on ``devices``, the two
+    n = 36 micro graphs (one bucket) served once each: every request
+    converged and bitwise equal to a direct solve on its replica, every
+    construction on the tier and adopted.  Returns the cluster's stats
+    and the launch counts over the trace."""
+    from repro_torch.core.column_math import key_from_seed
+    from repro_torch.data import graphs
+    from repro_torch.serve import SolveCluster
+    gs = {"g2d": graphs.grid2d(6, 6, seed=3),
+          "road": graphs.road_like(6, seed=4)}
+    cl = SolveCluster(replicas=2, factor_replicas=1, routing="affinity",
+                      slots=4, iters_per_tick=8, devices=devices,
+                      cache_kw=dict(chunk=32, fill_slack=64, strict=False))
+    try:
+        for i, (name, g) in enumerate(gs.items()):
+            cl.register(g, key_from_seed(i), graph_id=name)
+        rng = np.random.default_rng(0)
+        runtime.reset_launches()
+        for name, g in gs.items():
+            b = rng.normal(size=g.n).astype(np.float32)
+            b -= b.mean()
+            r = cl.submit(name, b, tol=1e-6, maxiter=300).result(timeout=600)
+            assert r.status == "converged"
+            rep = cl.replicas[r.replica]
+            # the kernels launch on the calling thread's current device,
+            # as the replica's driver thread enters its own
+            with torch.cuda.device(rep.device):
+                ref = rep.cache.get(name).solve(
+                    torch.from_numpy(b[None]).to(rep.device), tol=1e-6,
+                    maxiter=300)
+            assert np.array_equal(np.atleast_2d(r.x).view(np.uint32),
+                                  ref.x.cpu().numpy().view(np.uint32))
+        assert cl.drain(timeout=120)
+        launches = dict(runtime.LAUNCHES)
+        st = cl.stats()
+        assert sum(w["factored"] for w in st.factor_tier["per_replica"]) \
+            == st.adoptions == 2
+        for rep in cl.replicas:
+            es = rep.frontend.stats().engine
+            assert es.step_compiles == es.buckets
+        return st, launches
+    finally:
+        cl.close(drain=False)
+
+
+def test_cluster_on_one_card_bitwise(dev):
+    """Every replica of the cluster on ``cuda:0``: the tier constructs
+    there, the fleet bytes live there and only the fused round and the
+    level sweep launch."""
+    st, launches = _cluster_on_cards("cuda:0,cuda:0,cuda:0")
+    assert st.factor_tier["per_replica"][0]["device"] == "cuda:0"
+    # the second cold graph goes to the roomier replica: both serve
+    for rs in st.per_replica:
+        assert rs.device == "cuda:0" and rs.cache["device"] == "cuda:0"
+        assert rs.routed == 1
+        assert set(rs.cache["fleet_device_bytes_by_device"]) == {"cuda:0"}
+    assert launches.get("sample_clique_round", 0) > 0
+    assert launches.get("ell_sweep_fleet", 0) > 0
+    for name in ("sample_clique", "ell_spmv_fleet", "ell_spmv",
+                 "ell_spmv_multi"):
+        assert launches.get(name, 0) == 0, name
+
+
+def test_cluster_pins_replicas_to_two_cards(dev):
+    """Solve replicas on ``cuda:0`` and ``cuda:1``, the factor replica on
+    ``cuda:1``: an adoption onto replica 0 crosses cards, each replica's
+    fleet bytes stay on its own card, and serving stays bitwise."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    st, _ = _cluster_on_cards("cuda:0,cuda:1,cuda:1")
+    assert st.factor_tier["per_replica"][0]["device"] == "cuda:1"
+    for rs, want in zip(st.per_replica, ("cuda:0", "cuda:1")):
+        assert rs.device == want and rs.cache["device"] == want
+        assert rs.routed == 1
+        assert set(rs.cache["fleet_device_bytes_by_device"]) == {want}
 
 
 def test_spmv_wrappers_reject_bad_input(dev):

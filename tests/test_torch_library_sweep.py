@@ -15,6 +15,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread per test process: the suite's files run side by
+# side in parallel processes
+torch.set_num_threads(1)
 
 from repro_torch.core import ref_ac as tref                    # noqa: E402
 from repro_torch.core import trisolve as ttri                  # noqa: E402

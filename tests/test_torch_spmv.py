@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread per test process: the suite's files run side by
+# side in parallel processes
+torch.set_num_threads(1)
 import jax.numpy as jnp                                        # noqa: E402
 
 from repro.kernels import ops as jops                          # noqa: E402
@@ -88,6 +91,18 @@ def test_plain_ell_spmv_is_a_fleet_lane_bit_for_bit():
                                        torch.zeros(1, dtype=torch.int32),
                                        xt[None])
     assert torch.equal(tspmv.ell_spmv_plain(c, v, xt), fleet[0])
+
+
+@pytest.mark.parametrize("B", [0, 3], ids=["vector", "block"])
+def test_numpy_row_sums_equal_torch_row_sums(B):
+    """The CPU plain version sums on numpy arrays; the torch sums (the
+    plain version on the card) give the same bits on the same inputs."""
+    cols, vals, rng = _panel(64, 33, 300, 11)
+    x = rng.normal(size=(300, B) if B else 300).astype(np.float32)
+    c, v, xt = (torch.from_numpy(a) for a in (cols, vals, x))
+    want = tspmv._row_sums_torch(c, v, xt)
+    assert torch.equal(tspmv.ell_spmv_plain(c, v, xt).view(torch.int32),
+                       want.view(torch.int32))
 
 
 def test_plain_ell_spmv_reads_a_row_range_in_place():
