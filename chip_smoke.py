@@ -46,8 +46,9 @@ to a plain version while a GPU is present):
            each row's level from the factor's packed schedules built anew)
            on the same input: bitwise equal, both times printed.  The
            full-row kernel's launches over these two applies are its
-           comparison_launches in the kernel table; its launches there
-           are the main path's, 0.
+           comparison_launches in the kernel table; its launches in that
+           row are [main]'s, 0: its own path is [zoo], whose rows carry
+           [zoo]'s launches.
   spmv     ell_spmv_fleet kernel vs its plain version at the main path's
            shapes (its forward panels, 1 and 8 lanes): relative error
            <= 1e-5, and a lane alone bitwise equal to the same lane inside
@@ -191,6 +192,49 @@ to a plain version while a GPU is present):
            true residual per tol, the affinity hit rate, per-replica routed
            counts, warm-burst requests and sweep launches, factors and
            fleet bytes, and the peak allocated memory.
+  zoo      the preconditioner families through their entry points, after
+           [cluster]'s device state is released, on one FactorCache on
+           cuda:0; launch counts reset just before and read just after
+           items 1-4.  (1) ichol (IC(0)) of [main]'s 64^3 graph with
+           [main]'s 1 and 8 right-hand sides and lane 0 of the 8 alone
+           (tol 1e-6, maxiter 500): every lane converged with a true
+           residual below 1e-4, lane 0 alone bitwise equal to lane 0 of
+           the block, only the level sweep ell_sweep_fleet launched; the
+           host build time, shift and nnz (read by IcholProbe), levels, panel
+           K and solve walls printed.  (2) amg and spai on
+           grid3d_uniform_16 and spai on powerlaw_4k (n = 4096, the
+           reference's serving scale: both families build a dense n x n
+           operator on the host), the same three solves of seeded
+           right-hand sides: converged, true residual below 1e-4, lane 0
+           alone bitwise equal, and the full-row ell_spmv_fleet's launches
+           equal to the applies the solves asked for (1 + the largest
+           iteration count of each), no level sweep; build time, K, nnz
+           and panel bytes printed.  (3) one SolveEngine (4 slots, 8
+           iterations a tick) serving all four families on
+           grid3d_uniform_16 at once, one 2-rhs request each: each equal
+           to its handle's direct solve bit for bit, buckets == 4 ==
+           step_compiles.  (4) --precond auto through
+           launch.serve.run_service (suite small, 12 requests, a 12-request
+           warm-up after the reference's pass serving every family on every
+           graph at every pow2 width): every request converged; the
+           selector's picks_by_family and requests/s printed.  The path
+           must have launched ell_spmv_fleet, ell_sweep_fleet and
+           sample_clique_round (the AC factors) and nothing else.  Then,
+           outside the counts, one ichol apply against both solves through
+           ell_sweep_fleet_plain (relative error <= 1e-5), and the
+           full-row kernel on each spmv panel with 8 seeded lanes against
+           ell_spmv_fleet_plain: each side, at every (lane, row), within
+           its own summation order's standard forward-error bound of the
+           exact float64 row sum (spmv.ell_spmv_fleet_error_bounds: the
+           kernel gamma_m sum_k |v x| with m = ceil(K/G) + log2 G, G the
+           row's thread group; the plain version gamma_K; the worst
+           ratios printed), each lane alone bitwise equal to its lane of
+           the batch.  [timing] then times the full-row kernel on the amg
+           panel of grid3d_uniform_16 and the spai panel of powerlaw_4k
+           (8 lanes), beside its plain version, torch.sparse.mm on the
+           panel's live slots in CSR (within gamma_K sum_k |v x| of the
+           exact row sums, a bound for any order) and the bound of the
+           live slots.
 
 The build phase also prints the number of HGMMA (wgmma) instructions in
 the attention library's SASS, where cuobjdump exists.
@@ -198,9 +242,12 @@ the attention library's SASS, where cuobjdump exists.
 The last three lines are the kernel table as JSON (one row per kernel,
 two for sample_clique — the standalone rows, then the fused round —,
 two for each level sweep — ell_sweep_fleet, ell_sweep and
-ell_sweep_multi: the largest forward level, then an average one — and
+ell_sweep_multi: the largest forward level, then an average one —,
 two for flash_attention — the qwen3-14b shape, then the
-recurrentgemma-2b one), the card's name and power limit, and
+recurrentgemma-2b one — and three for the full-row ell_spmv_fleet: [main]'s
+forward panel with [main]'s launches (0) and comparison launches, then
+[zoo]'s amg and spai panels, each with [zoo]'s launch count), the card's
+name and power limit, and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -2085,6 +2132,366 @@ def phase_cluster(dev, g0, main_f, card):
     log(f"[cluster] phase passed in {time.time() - t_phase:.1f}s; {card}")
 
 
+# kernels that must not launch in the [zoo] phase: the families' applies
+# run the fleet's two kernels (the full-row ell_spmv_fleet for amg and
+# spai, the level sweep for ac and ichol) and the AC factors the fused round
+ZOO_SILENT = ("sample_clique", "ell_spmv", "ell_spmv_multi", "ell_sweep",
+              "ell_sweep_multi", "flash_attention")
+# the (suite graph, family) pairs the [zoo] phase serves through the
+# full-row kernel: the two spmv families at the reference's serving scale
+# (n = 4096), spai also on the power-law graph (its K tier 2048)
+ZOO_SPMV = (("grid3d_uniform_16", "amg"), ("grid3d_uniform_16", "spai"),
+            ("powerlaw_4k", "spai"))
+ZOO_FAMILIES = ("ac", "ichol", "amg", "spai")
+
+
+class IcholProbe:
+    """While the ``with`` block runs, records each host incomplete-Cholesky
+    factorization the ichol family's build function makes: its shift, the
+    nnz of its factor and its wall time."""
+
+    def __init__(self):
+        self.builds = []
+
+    def __enter__(self):
+        from repro_torch.core import ichol as mod
+        self._orig = orig = mod.ichol
+
+        def probed(*args, **kw):
+            t0 = time.time()
+            ic = orig(*args, **kw)
+            self.builds.append(dict(shift=ic.shift, nnz=ic.nnz,
+                                    seconds=time.time() - t0))
+            return ic
+        mod.ichol = probed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import ichol as mod
+        mod.ichol = self._orig
+
+
+def fleet_apply_plain(h, R):
+    """The handle's factor-kind apply with both triangular solves through
+    ``ell_sweep_fleet_plain`` (the same arguments ``ops.trisolve_fleet``
+    gives the kernel)."""
+    import torch
+    from repro_torch.kernels import spmv
+    fl = h.fleet
+    fa = fl.arrays
+    fidx = torch.full((R.shape[0],), h.fleet_row, dtype=torch.int32,
+                      device=R.device)
+    f = fidx.long()
+    Y = R.clone()
+    spmv.ell_sweep_fleet_plain(fa.fcols, fa.fvals, fa.flen, fa.frows,
+                               fa.fstart, fidx, Y,
+                               fl.f_rows[:int(fa.fnlv[f].max())])
+    Z = Y * fa.dinv[f]
+    spmv.ell_sweep_fleet_plain(fa.bcols, fa.bvals, fa.blen, fa.brows,
+                               fa.bstart, fidx, Z,
+                               fl.b_rows[:int(fa.bnlv[f].max())])
+    return Z
+
+
+def zoo_solves(tag, h, g, b1, B8, card):
+    """The 1-rhs solve of ``b1``, the 8-rhs solve of ``B8`` and its lane 0
+    alone (tol 1e-6, maxiter 500) on handle ``h``: every lane converged
+    with a true residual below 1e-4, lane 0 alone bitwise equal to lane 0
+    of the block.  Returns the full-row and sweep launches each solve
+    made and the applies it asked for (1 + its largest iteration count)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import runtime
+    dev = h.device
+    out = dict(walls=[], iters=[], spmv=0, sweep=0, applies=0)
+    results = []
+    for B in (b1, B8, B8[0]):
+        torch.cuda.synchronize()
+        before = dict(runtime.LAUNCHES)
+        t0 = time.time()
+        r = h.solve(torch.from_numpy(np.ascontiguousarray(B)).to(dev),
+                    tol=1e-6, maxiter=500)
+        torch.cuda.synchronize()
+        out["walls"].append(time.time() - t0)
+        it = np.atleast_1d(r.iters.cpu().numpy())
+        out["iters"].append(it)
+        out["applies"] += 1 + int(it.max())
+        for key, name in (("spmv", "ell_spmv_fleet"),
+                          ("sweep", "ell_sweep_fleet")):
+            out[key] += runtime.LAUNCHES.get(name, 0) - before.get(name, 0)
+        check(bool(r.converged.all()), f"zoo {tag}: a lane did not converge")
+        for x, b in zip(np.atleast_2d(r.x.cpu().numpy()), np.atleast_2d(B)):
+            rr = true_relres(g, x, b)
+            check(np.all(np.isfinite(x)) and rr < 1e-4,
+                  f"zoo {tag}: true residual {rr:.2e}")
+        results.append(r)
+    check(bitwise_equal(results[2].x, results[1].x[0])
+          and int(results[2].iters) == int(results[1].iters[0]),
+          f"zoo {tag}: lane 0 of the 8-rhs solve differs from the same "
+          f"right-hand side solved alone")
+    it8 = out["iters"][1]
+    log(f"[zoo] {tag}: solve 1 rhs {out['walls'][0]:.3f}s iters "
+        f"{int(out['iters'][0][0])}; 8 rhs {out['walls'][1]:.3f}s iters "
+        f"{it8.min()}..{it8.max()}; lane 0 alone {out['walls'][2]:.3f}s == "
+        f"lane 0 of the block bit for bit; full-row ell_spmv_fleet "
+        f"launches {out['spmv']}, ell_sweep_fleet launches {out['sweep']}, "
+        f"applies asked for {out['applies']}; {card}")
+    return out
+
+
+def phase_zoo(dev, g64, card):
+    """The [zoo] phase (see the module docstring).  Returns the launch
+    counts of its path, its spmv handles and the worst kernel errors
+    against the plain versions, for the [timing] rows it adds."""
+    import numpy as np
+    import torch
+    from repro_torch.core.column_math import key_from_seed
+    from repro_torch.core.solver import FactorCache
+    from repro_torch.data import graphs
+    from repro_torch.kernels import runtime, spmv
+    from repro_torch.launch.serve import run_service
+    from repro_torch.serve import SolveEngine, SolveRequest
+    t_phase = time.time()
+    rng = np.random.default_rng(0)             # [main]'s right-hand sides
+    b1 = rng.normal(size=g64.n).astype(np.float32)
+    B8 = rng.normal(size=(8, g64.n)).astype(np.float32)
+    cache = FactorCache(device=dev)
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+
+    # 1. ichol at 64^3, through the fleet's level sweeps
+    t0 = time.time()
+    with IcholProbe() as probe:
+        hi = cache.factor(g64, key_from_seed(0), graph_id="g64::ichol",
+                          family="ichol")
+        torch.cuda.synchronize()
+    t_ic = time.time() - t0
+    ic = probe.builds[-1]
+    check(len(probe.builds) == 1, "zoo: ichol factored more than once")
+    log(f"[zoo] ichol grid3d 64^3 n={g64.n}: host build {ic['seconds']:.2f}s "
+        f"(host), admission {t_ic - ic['seconds']:.2f}s, shift "
+        f"{ic['shift']}, nnz(L) {ic['nnz']} nnz(G) {hi.factor.nnz}, levels "
+        f"fwd={hi.n_levels_fwd} bwd={hi.n_levels_bwd}, panel K fwd="
+        f"{hi.fleet.Kf} bwd={hi.fleet.Kb}; {card}")
+    ichol = zoo_solves("ichol 64^3", hi, g64, b1, B8, card)
+    check(ichol["sweep"] > 0 and ichol["spmv"] == 0,
+          "zoo: ichol's solves did not run on the level sweep alone")
+
+    # 2. amg and spai at the reference's serving scale, on the full-row
+    # kernel, one launch per apply
+    suite = {name: graphs.SUITE[name]() for name in
+             ("grid3d_uniform_16", "powerlaw_4k")}
+    spmv_handles = {}
+    for name, fam in ZOO_SPMV:
+        g = suite[name]
+        t0 = time.time()
+        h = cache.factor(g, key_from_seed(0), graph_id=f"{name}::{fam}",
+                         family=fam)
+        torch.cuda.synchronize()
+        t_build = time.time() - t0
+        panel = h.n_pad * h.fleet.Kf * 8
+        log(f"[zoo] {fam} {name} n={g.n}: build {t_build:.2f}s (host "
+            f"construction and admission), K {h.factor.K}, nnz "
+            f"{h.factor.nnz}, fleet K tier {h.fleet.k_tier}, panel bytes "
+            f"{panel} (R={h.n_pad} x K={h.fleet.Kf} x 8); {card}")
+        zr = np.random.default_rng(1)
+        zb1 = zr.normal(size=g.n).astype(np.float32)
+        zB8 = zr.normal(size=(8, g.n)).astype(np.float32)
+        out = zoo_solves(f"{fam} {name}", h, g, zb1, zB8, card)
+        check(out["spmv"] > 0 and out["spmv"] == out["applies"],
+              f"zoo {fam} {name}: {out['spmv']} full-row launches for "
+              f"{out['applies']} applies asked for")
+        check(out["sweep"] == 0, f"zoo {fam} {name}: a level sweep ran")
+        spmv_handles[name, fam] = h
+
+    # 3. one engine serving all four families on grid3d_uniform_16
+    g16 = suite["grid3d_uniform_16"]
+    hs = {fam: cache.factor(g16, key_from_seed(0),
+                            graph_id=f"grid3d_uniform_16::{fam}", family=fam)
+          for fam in ZOO_FAMILIES}
+    er = np.random.default_rng(29)
+    eng = SolveEngine(cache, slots=4, iters_per_tick=8)
+    reqs = []
+    for i, fam in enumerate(ZOO_FAMILIES):
+        b = er.normal(size=(2, g16.n)).astype(np.float32)
+        reqs.append(SolveRequest(rid=i, graph_id=f"grid3d_uniform_16::{fam}",
+                                 b=b - b.mean(axis=1, keepdims=True),
+                                 tol=1e-6, maxiter=500))
+        eng.submit(reqs[-1])
+    t0 = time.time()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    t_eng = time.time() - t0
+    check(len(done) == len(reqs), "zoo: the engine left requests unserved")
+    for r, fam in zip(reqs, ZOO_FAMILIES):
+        ref = hs[fam].solve(torch.from_numpy(r.b).to(dev), tol=r.tol,
+                            maxiter=r.maxiter)
+        check(r.status == "converged"
+              and np.array_equal(np.atleast_2d(r.x).view(np.uint32),
+                                 ref.x.cpu().numpy().view(np.uint32))
+              and np.array_equal(np.atleast_1d(r.iters),
+                                 ref.iters.cpu().numpy()),
+              f"zoo: the engine's {fam} request differs from its direct "
+              f"solve")
+    st = eng.stats()
+    check(st.buckets == len(ZOO_FAMILIES) and st.step_compiles == st.buckets,
+          f"zoo: engine buckets {st.buckets}, step_compiles "
+          f"{st.step_compiles}")
+    log(f"[zoo] engine: 4 families on grid3d_uniform_16, 4 requests of 2 "
+        f"rhs in {t_eng:.3f}s over {st.ticks} ticks, each bitwise equal "
+        f"to its direct solve; iters "
+        + ", ".join(f"{fam} {np.atleast_1d(r.iters).tolist()}"
+                    for r, fam in zip(reqs, ZOO_FAMILIES))
+        + f"; buckets {st.buckets} == step_compiles {st.step_compiles}; "
+        f"{card}")
+    del eng, hs, reqs, done
+
+    # 4. --precond auto through the serve launcher's entry point
+    t0 = time.time()
+    metrics, done = run_service(suite="small", precond="auto",
+                                device=str(dev), requests=12,
+                                warmup_requests=12)
+    torch.cuda.synchronize()
+    t_auto = time.time() - t0
+    check(metrics["completed"] == metrics["converged"] == 12,
+          f"zoo auto: {metrics['converged']} of {metrics['completed']} "
+          f"requests converged (12 sent)")
+    sel = metrics["selector"]
+    log(f"[zoo] auto: suite small, build {metrics['factor_s']:.2f}s (AC "
+        f"batch on the card, ichol/amg/spai on the host), warm-up and "
+        f"12-request trace {t_auto - metrics['factor_s']:.2f}s; measured "
+        f"trace {metrics['serve_s']:.3f}s, {metrics['requests_per_s']:.3f} "
+        f"requests/s, latency p50 {metrics['latency_p50_s']:.3f}s p95 "
+        f"{metrics['latency_p95_s']:.3f}s; selector picks_by_family "
+        f"{sel['picks_by_family']} (explores {sel['explores']}, cold "
+        f"{sel['cold_picks']}); served graph ids "
+        f"{sorted({r.graph_id for r in done})}; {card}")
+    del done
+    torch.cuda.synchronize()
+    launches = dict(runtime.LAUNCHES)
+    log(f"[zoo] launches over the path: {launches}")
+    for name in ("ell_spmv_fleet", "ell_sweep_fleet", "sample_clique_round"):
+        check(launches.get(name, 0) > 0,
+              f"zoo: the path never launched the {name} kernel")
+    for name in ZOO_SILENT:
+        check(launches.get(name, 0) == 0,
+              f"zoo: the path launched the {name} kernel")
+
+    # comparisons with the plain versions (after the path's counts)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    R = torch.zeros((1, hi.n_pad), device=dev)
+    R[0, :hi.n] = torch.randn(hi.n, generator=gen, device=dev)
+    got = hi.precondition(R[0, :hi.n])
+    want = fleet_apply_plain(hi, R)[0, :hi.n]
+    torch.cuda.synchronize()
+    rel = float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                1e-30)
+    check(rel <= 1e-5, f"zoo: ichol's apply differs from its plain "
+                       f"version by {rel:.2e} relative")
+    log(f"[zoo] ichol 64^3 apply vs ell_sweep_fleet_plain: relative error "
+        f"{rel:.2e}")
+    errs = {}
+    for (name, fam), h in spmv_handles.items():
+        fa = h.fleet.arrays
+        X = torch.zeros((8, h.n_pad), device=dev)
+        X[:, :h.n] = torch.randn((8, h.n), generator=gen, device=dev)
+        fidx = torch.full((8,), h.fleet_row, dtype=torch.int32, device=dev)
+        y = spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X)
+        p = spmv.ell_spmv_fleet_plain(fa.fcols, fa.fvals, fidx, X)
+        err = (y.double() - p.double()).abs()
+        exact, kernel_bound, plain_bound = spmv.ell_spmv_fleet_error_bounds(
+            fa.fcols, fa.fvals, fidx, X)
+        ratio, plain_ratio = (
+            float(((z.double() - exact).abs()
+                   / bnd.clamp(min=1e-300)).max())
+            for z, bnd in ((y, kernel_bound), (p, plain_bound)))
+        check(ratio <= 1.0, f"zoo {fam} {name}: the full-row kernel is "
+                            f"{ratio:.3g} times its forward-error bound")
+        check(plain_ratio <= 1.0,
+              f"zoo {fam} {name}: the plain version is {plain_ratio:.3g} "
+              f"times its forward-error bound")
+        for lane in range(8):
+            alone = spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx[:1],
+                                        X[lane:lane + 1].contiguous())
+            check(bitwise_equal(alone[0], y[lane]),
+                  f"zoo {fam} {name}: lane {lane} alone differs from the "
+                  f"same lane in the 8-lane batch")
+        errs[name, fam] = float(err.max())
+        rel = errs[name, fam] / max(float(p.abs().max()), 1e-30)
+        log(f"[zoo] {fam} {name} full-row ell_spmv_fleet L=8 R={h.n_pad} "
+            f"K={h.fleet.Kf}: max abs err {errs[name, fam]:.3e} (relative "
+            f"{rel:.2e}); against the exact float64 row sums, worst ratio "
+            f"to its own order's forward-error bound: kernel {ratio:.3e}, "
+            f"plain {plain_ratio:.3e}; each lane alone == its lane of the "
+            f"batch, bit for bit")
+    log(f"[zoo] phase passed in {time.time() - t_phase:.1f}s; {card}")
+    return dict(launches=launches, handles=spmv_handles, errs=errs)
+
+
+def zoo_timing(dev, zoo):
+    """The [timing] rows of the full-row ell_spmv_fleet at the shapes the
+    [zoo] path gives it: the amg panel of grid3d_uniform_16 and the spai
+    panel of powerlaw_4k, 8 lanes each, against the plain version and
+    torch.sparse.mm on the same rows in CSR (live slots only)."""
+    import torch
+    from repro_torch.kernels import spmv
+    rows = []
+    for key in (("grid3d_uniform_16", "amg"), ("powerlaw_4k", "spai")):
+        h = zoo["handles"][key]
+        fa = h.fleet.arrays
+        n_pad, K = h.n_pad, fa.fcols.shape[2]
+        L = 8
+        X = torch.zeros((L, n_pad), device=dev)
+        X[:, :h.n] = torch.randn((L, h.n), device=dev)
+        fidx = torch.full((L,), h.fleet_row, dtype=torch.int32, device=dev)
+        ms = time_ms(lambda: spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X))
+        device_ms = device_ms_per_launch(
+            lambda: spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X))
+        plain_ms = time_ms(lambda: spmv.ell_spmv_fleet_plain(
+            fa.fcols, fa.fvals, fidx, X), reps=2)
+        c = fa.fcols[h.fleet_row].reshape(-1)
+        v = fa.fvals[h.fleet_row].reshape(-1)
+        # a row's kept entries are its first slots, all nonzero: row-major
+        # order of the live slots is CSR order
+        live = v != 0
+        crow = torch.zeros(n_pad + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum((fa.fvals[h.fleet_row] != 0).sum(1), 0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            csr = torch.sparse_csr_tensor(crow, c[live].long(), v[live],
+                                          size=(n_pad, n_pad),
+                                          check_invariants=False)
+        XT = X.T.contiguous()
+        y_lib = torch.sparse.mm(csr, XT).T
+        y_k = spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X)
+        torch.cuda.synchronize()
+        # cuSPARSE's summation order and product roundings are not known:
+        # the plain version's bound (K roundings a term) covers any order
+        # of a row's K terms, with or without FMA
+        exact, _, any_order = spmv.ell_spmv_fleet_error_bounds(
+            fa.fcols, fa.fvals, fidx, X)
+        check(bool(((y_lib.double() - exact).abs() <= any_order).all()),
+              f"torch.sparse.mm is beyond the forward-error bound of the "
+              f"exact row sums on the {key[1]} panel")
+        lib_ms = time_ms(lambda: torch.sparse.mm(csr, XT))
+        nnz = int(live.sum())
+        x_bytes = L * gathered_bytes(c, v, 1)
+        nbytes = nnz * 8 + x_bytes + L * 4 + L * n_pad * 4
+        rows.append(dict(
+            name="ell_spmv_fleet", route="cuda",
+            source="src/repro_torch/csrc/ell_spmv_fleet.cu",
+            replaces="src/repro/kernels/spmv.py:104",
+            launches=zoo["launches"].get("ell_spmv_fleet", 0),
+            max_abs_err=zoo["errs"][key], ms=ms, plain_ms=plain_ms,
+            **bound(nbytes, 2 * L * nnz), library_ms=lib_ms,
+            shape=f"{key[1]} {key[0]} panel: L={L} R={n_pad} K={K} "
+                  f"nnz={nnz} x_bytes={x_bytes} (padded panel bytes "
+                  f"{n_pad * K * 8})",
+            device_ms=device_ms))
+    log_rows(rows)
+    return rows
+
+
 def device_ms_per_launch(fn, n: int = 20, tries: int = 3):
     """Device time of one call of ``fn`` (one kernel launch): the busy
     time of ``n`` back-to-back calls in one trace over ``n``, so the host's
@@ -2467,6 +2874,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_cluster(dev, g64, main_f, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo = phase_zoo(dev, g64, card)
+    kernels += zoo_timing(dev, zoo)
     log(f"[done] all phases passed in {time.time() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": [{k: r[k] for k in ROW_KEYS + EXTRA_KEYS
                                    if k in r} for r in kernels]}))

@@ -69,6 +69,21 @@ class Graph:
                      self.w.copy())
 
 
+def grounded_laplacian_coo(g: Graph, shift: float = 0.0):
+    """COO triples ``(i, j, v)`` of the grounded (SPD) Laplacian
+    ``L + shift·diag(L) + 1e-12·I`` — the operator every host-built
+    family (``ichol``, ``amg``, ``spai``) factors or approximates.  The
+    grounding is an absolute ``1e-12`` on the diagonal; ``shift`` is the
+    relative Manteuffel shift of the incomplete-Cholesky breakdown retry.
+    Returns int/float numpy arrays for
+    ``scipy.sparse.coo_matrix((v, (i, j)), shape=(g.n, g.n))``."""
+    i = np.concatenate([g.src, g.dst, np.arange(g.n)])
+    j = np.concatenate([g.dst, g.src, np.arange(g.n)])
+    wd = g.weighted_degrees()
+    v = np.concatenate([-g.w, -g.w, wd * (1.0 + shift) + 1e-12])
+    return i, j, v
+
+
 def laplacian_dense(g: Graph, dtype=np.float64) -> np.ndarray:
     """Dense Laplacian — tests only."""
     L = np.zeros((g.n, g.n), dtype=dtype)
@@ -132,3 +147,25 @@ def laplacian_adjacency(g: Graph, n_rows: int = 0, K: int = 0,
 def project_mean_zero(x: torch.Tensor) -> torch.Tensor:
     """Project onto 1⊥ — Laplacians are singular with nullspace span(1)."""
     return x - torch.mean(x)
+
+
+def sdd_to_grounded_laplacian(A_diag: np.ndarray, g: Graph) -> Graph:
+    """Reduce an SDD system ``A = L(g) + diag(surplus)`` to a Laplacian.
+
+    ``A_diag`` is the full diagonal of A; the surplus
+    ``s_v = A_vv - Σ_incident w`` must be ≥ 0 (diagonally dominant).  A
+    ground vertex ``n`` gets an edge ``(v, n, s_v)`` for every ``v`` with
+    ``s_v > 0``; solving the grounded Laplacian with rhs ``[b; -Σb]`` and
+    then grounding ``x_n = 0`` solves ``A x = b``.  Raises ``ValueError``
+    when ``A`` is not diagonally dominant."""
+    wd = g.weighted_degrees()
+    surplus = np.asarray(A_diag, dtype=np.float64) - wd
+    if np.any(surplus < -1e-9 * np.abs(A_diag)):
+        raise ValueError("matrix is not diagonally dominant")
+    surplus = np.maximum(surplus, 0.0)
+    keep = surplus > 0
+    vs = np.nonzero(keep)[0].astype(np.int32)
+    gsrc = np.concatenate([g.src, vs])
+    gdst = np.concatenate([g.dst, np.full(vs.shape, g.n, dtype=np.int32)])
+    gw = np.concatenate([g.w, surplus[keep].astype(g.w.dtype)])
+    return Graph(g.n + 1, gsrc, gdst, gw)

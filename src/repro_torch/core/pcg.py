@@ -148,13 +148,23 @@ def adjacency_matvec(nbr: torch.Tensor, w: torch.Tensor,
 def fleet_precondition(fa: FleetArrays, fidx: torch.Tensor, R: torch.Tensor,
                        *, f_rows: Sequence[int], b_rows: Sequence[int],
                        kind: str = "factor", active=None) -> torch.Tensor:
-    """Per-lane ``(G D Gᵀ)⁺`` apply: forward level sweeps → D⁻¹ scale →
-    backward level sweeps, each lane reading its own factor's panels and
-    level rows from the stack.  ``f_rows``/``b_rows`` are the bucket's
-    largest row count per level (host ints; their lengths the level
-    ceilings); the trip count of each solve is the live batch's maximum
-    true level count (``active`` masks frozen lanes out of that bound —
-    their output is discarded by the caller)."""
+    """Per-lane preconditioner apply, dispatched on the fleet's apply
+    ``kind``:
+
+    * ``"factor"`` — ``(G D Gᵀ)⁺``: forward level sweeps → D⁻¹ scale →
+      backward level sweeps, each lane reading its own factor's panels
+      and level rows from the stack.  ``f_rows``/``b_rows`` are the
+      bucket's largest row count per level (host ints; their lengths the
+      level ceilings); the trip count of each solve is the live batch's
+      maximum true level count (``active`` masks frozen lanes out of that
+      bound — their output is discarded by the caller).  The randomized
+      AC and the incomplete-Cholesky families.
+    * ``"spmv"`` — ``M r``: one full-row ``ell_spmv_fleet`` launch over
+      the materialized approximate inverse in the forward-panel slots
+      (``fcols``/``fvals``); the backward panels and ``dinv`` are inert.
+      The SPAI and flattened-AMG families."""
+    if kind == "spmv":
+        return ops.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, R)
     if kind != "factor":
         raise ValueError(f"unknown preconditioner apply kind: {kind!r}")
     f = fidx.long()

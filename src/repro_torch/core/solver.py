@@ -1,5 +1,5 @@
 """``FactorCache`` / ``Solver`` — the factor→solve pipeline as a
-multi-tenant API (randomized AC family).
+multi-tenant API over the preconditioner families.
 
     cache = FactorCache(memory_budget_bytes=1 << 30)
     gid = cache.factor(graph, key_from_seed(0)).graph_id
@@ -18,9 +18,14 @@ per-handle staleness (``ttl_s`` wall-clock / ``max_age_ticks`` service
 ticks, clock injectable for tests).  A fleet compacts to its live rows
 once enough of them died (``compact_threshold``).
 
-Preconditioner families register by name (:func:`register_family`); the
-port registers ``"ac"`` only, so ``factor(..., family="ichol")`` raises
-the registry's ``KeyError`` until the other families are ported.
+Preconditioner families register by name (:func:`register_family`), as
+the reference's do: ``"ac"`` (the randomized factor) and ``"ichol"``
+(incomplete Cholesky as ``(G, D)``) of the ``"factor"`` kind, applied by
+two level-swept triangular solves; ``"amg"`` (the flattened V-cycle) and
+``"spai"`` (factored SPAI, ``M = GᵀG``) of the ``"spmv"`` kind, whose
+materialized operator rides the forward panel and is applied by one
+full-row ``ell_spmv_fleet`` launch.  An unregistered name raises
+``KeyError``.
 
 ``Solver`` keeps the single-tenant surface (``factor`` then ``solve(B)``
 against the most recent handle).
@@ -44,6 +49,9 @@ from .laplacian import Graph, laplacian_adjacency
 from .ref_ac import ACFactor, DeviceFactor
 from .parac import factorize_wavefront, factorize_batched, _next_pow2
 from .trisolve import PackedSchedule, build_schedules_batched
+from .ichol import ichol_device_factor
+from .amg import amg_ell_precond
+from .spai import EllPrecond, spai_ell_precond
 from .pcg import (PCGResult, FleetArrays, fleet_matvec, fleet_precondition,
                   pcg_fleet_solve, pcg_fleet_result)
 
@@ -78,9 +86,12 @@ def graph_fingerprint(g: Graph, key=None, *, family: str = "ac",
 @dataclasses.dataclass(frozen=True)
 class PrecondFamily:
     """One registered preconditioner family.  ``kind`` selects the
-    fleet's apply (``"factor"``: two level-swept triangular solves;
-    ``"spmv"``: one lane-batched SpMV, not yet in the port); ``build``
-    constructs the payload, ``build(g, key, dtype=..., **params)``."""
+    fleet's apply (``"factor"``: two level-swept triangular solves over
+    a ``(G, D)`` factor; ``"spmv"``: one lane-batched SpMV of a
+    materialized approximate inverse); ``build`` constructs the payload,
+    ``build(g, key, dtype=..., **params)`` — an ``ACFactor`` or
+    ``DeviceFactor`` for the factor kind, an
+    :class:`~repro_torch.core.spai.EllPrecond` for the spmv kind."""
 
     name: str
     kind: str
@@ -118,6 +129,19 @@ register_family(
     strict=True, max_retries=3, device=None: factorize_wavefront(
         g, key, chunk=chunk, fill_slack=fill_slack, strict=strict,
         max_retries=max_retries, dtype=dtype, device=device))
+register_family(
+    "ichol", "factor",
+    lambda g, key, *, dtype=np.float32, droptol=0.0, max_shift_tries=8:
+    ichol_device_factor(g, droptol=droptol,
+                        max_shift_tries=max_shift_tries, dtype=dtype))
+register_family(
+    "amg", "spmv",
+    lambda g, key, *, dtype=np.float32, droptol=1e-3:
+    amg_ell_precond(g, droptol=droptol, dtype=dtype))
+register_family(
+    "spai", "spmv",
+    lambda g, key, *, dtype=np.float32, droptol=0.0:
+    spai_ell_precond(g, droptol=droptol, dtype=dtype))
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -159,9 +183,14 @@ def _max_rows(a: List[int], b: List[int]) -> List[int]:
 
 
 class _PaddedFactor:
-    """One factor's bucket-padded device arrays, ready for fleet
+    """One preconditioner's bucket-padded device arrays, ready for fleet
     admission: Laplacian adjacency rows, forward/backward
-    :class:`PackedSchedule` panels and the padded inverse diagonal."""
+    :class:`PackedSchedule` panels and the padded inverse diagonal.
+
+    ``"spmv"``-kind members reuse the container (:meth:`from_ell`): the
+    approximate inverse's ELL rows ride in the forward panel, one level
+    holding every row (the SpMV apply never sweeps), the backward panel
+    is inert and 1 wide and ``dinv`` is zero."""
 
     __slots__ = ("n", "n_pad", "lnbr", "lw", "fwd", "bwd", "dinv")
 
@@ -178,6 +207,36 @@ class _PaddedFactor:
         self.dinv = _grow(dinv, (self.n_pad,))
         self.fwd = fwd
         self.bwd = bwd
+
+    @classmethod
+    def from_ell(cls, g: Graph, op: EllPrecond, device) -> "_PaddedFactor":
+        """The fleet-admissible view of a materialized approximate inverse
+        on ``device``: its ELL rows become a 1-level forward panel whose
+        padding rows and slots hold zero values, so they add exactly zero
+        to the lane-batched SpMV.  Every true row's live length is the
+        panel width K (the full-row apply reads all of it)."""
+        n_pad = max(_next_pow2(g.n), 1)
+        cols = _grow(torch.as_tensor(op.cols, dtype=torch.int32,
+                                     device=device), (n_pad, op.K))
+        vals = _grow(torch.as_tensor(op.vals, device=device), (n_pad, op.K))
+        zeros_n = torch.zeros((n_pad,), dtype=torch.int32, device=device)
+        row_len = zeros_n.clone()
+        row_len[:g.n] = op.K
+        fwd = PackedSchedule(n=g.n, n_pad=n_pad, n_levels=1, K=op.K,
+                             cols=cols, vals=vals, level_of=zeros_n,
+                             row_len=row_len)
+        bwd = PackedSchedule(
+            n=g.n, n_pad=n_pad, n_levels=1, K=1,
+            cols=torch.zeros((n_pad, 1), dtype=torch.int32, device=device),
+            vals=torch.zeros((n_pad, 1), dtype=vals.dtype, device=device),
+            level_of=zeros_n, row_len=zeros_n)
+        dev = DeviceFactor(
+            col_ptr=torch.zeros((g.n + 1,), dtype=torch.int32,
+                                device=device),
+            rows=torch.zeros((0,), dtype=torch.int32, device=device),
+            vals=torch.zeros((0,), dtype=vals.dtype, device=device),
+            D=torch.zeros((g.n,), dtype=vals.dtype, device=device))
+        return cls(g, dev, fwd, bwd)
 
 
 class FactorFleet:
@@ -419,11 +478,14 @@ class FactorFleet:
 
 @dataclasses.dataclass(eq=False)
 class PreconditionerHandle:
-    """A constructed factor ready to serve solves.  Its data lives in its
-    bucket's :class:`FactorFleet` (``fleet`` + ``fleet_row``)."""
+    """A constructed preconditioner ready to serve solves — the one
+    interface every family presents to the cache, the engine and direct
+    callers.  Its data lives in its bucket's :class:`FactorFleet`
+    (``fleet`` + ``fleet_row``); ``factor`` is the family payload
+    (``ACFactor`` / ``DeviceFactor`` / ``EllPrecond``)."""
 
     graph: Graph
-    factor: ACFactor
+    factor: object
     fleet: FactorFleet
     fleet_row: int
     n_levels_fwd: int
@@ -450,7 +512,8 @@ class PreconditionerHandle:
 
     @property
     def n_levels(self) -> int:
-        """Forward critical-path length (levels)."""
+        """Forward critical-path length (levels; 1 for ``"spmv"``
+        families, whose apply is level-free)."""
         return self.n_levels_fwd
 
     @property
@@ -459,10 +522,14 @@ class PreconditionerHandle:
 
     @property
     def device_bytes(self) -> int:
-        """The handle's row of the fleet stack plus its compact device
-        factor."""
-        dev = self.factor.to_device()
-        return sum(_nbytes(t) for t in dev) + self.fleet.bytes_per_row
+        """The handle's row of the fleet stack plus, for factor kinds, its
+        compact device factor (resident on the cache's device beside the
+        stack; an spmv payload is host-side: its device copy is the fleet
+        row)."""
+        f = self.factor
+        own = sum(_nbytes(t) for t in f.to_device()) \
+            if isinstance(f, (ACFactor, DeviceFactor)) else 0
+        return own + self.fleet.bytes_per_row
 
     def _fidx(self, L: int) -> torch.Tensor:
         return torch.full((L,), self.fleet_row, dtype=torch.int32,
@@ -482,8 +549,9 @@ class PreconditionerHandle:
                             self._pad(x[None]))[0, :self.n]
 
     def precondition(self, r: torch.Tensor) -> torch.Tensor:
-        """``r -> (G D Gᵀ)⁺ r`` for ``r`` of shape ``(n,)`` or
-        ``(n, nrhs)`` (columns become lanes)."""
+        """``r -> (G D Gᵀ)⁺ r`` for factor kinds, ``r -> M r`` for spmv
+        kinds, for ``r`` of shape ``(n,)`` or ``(n, nrhs)`` (columns
+        become lanes)."""
         r = torch.as_tensor(r, dtype=torch.float32, device=self.device)
         R = r[None] if r.dim() == 1 else r.T
         out = fleet_precondition(self.fleet.arrays, self._fidx(R.shape[0]),
@@ -717,14 +785,15 @@ class FactorCache:
                 self._handles.move_to_end(gid)
         return [fleet[gid] for gid in gids]
 
-    def attach(self, g: Graph, f: ACFactor, *,
+    def attach(self, g: Graph, f, *,
                graph_id: Optional[str] = None, family: str = "ac",
                schedules: Optional[Tuple[PackedSchedule,
                                          PackedSchedule]] = None,
                ttl_s=_UNSET, max_age_ticks=_UNSET) -> PreconditionerHandle:
-        """Wrap an existing factor (the sequential oracle's, one carried
-        across from the reference package by ``convert``, ...) in a solve
-        handle and admit it to its fleet — no re-construction."""
+        """Wrap an existing family payload (the sequential oracle's
+        factor, one carried across from the reference package by
+        ``convert``, a pre-built ``EllPrecond``, ...) in a solve handle and
+        admit it to its fleet — no re-construction."""
         gid = graph_id if graph_id is not None else graph_fingerprint(
             g, family=family)
         (_, handle), = self._attach_many([(g, f, schedules, gid, family)],
@@ -732,7 +801,7 @@ class FactorCache:
                                          max_age_ticks=max_age_ticks)
         return handle
 
-    def adopt(self, g: Graph, f: ACFactor, *, graph_id: str,
+    def adopt(self, g: Graph, f, *, graph_id: str,
               family: str = "ac",
               schedules: Optional[Tuple[PackedSchedule,
                                         PackedSchedule]] = None,
@@ -761,20 +830,23 @@ class FactorCache:
 
     def _attach_many(self, items, *, ttl_s=_UNSET, max_age_ticks=_UNSET
                      ) -> List[Tuple[str, PreconditionerHandle]]:
-        """Admit ``(graph, factor, schedules|None, gid, family)`` items,
+        """Admit ``(graph, payload, schedules|None, gid, family)`` items,
         grouped by fleet so each stack grows once; the budget sweep runs
         at the end."""
         built = []
         for g, f, schedules, gid, family in items:
             fam = get_family(family)
-            if fam.kind != "factor":
-                raise ValueError(f"family {family!r}: the {fam.kind!r} "
-                                 f"apply kind is not in the port yet")
-            dev = f.to_device(self.device)
-            if schedules is None:
-                schedules = build_schedules_batched([dev])[0]
-            fwd, bwd = schedules
-            pf = _PaddedFactor(g, dev, fwd, bwd)
+            if fam.kind == "spmv":
+                pf = _PaddedFactor.from_ell(g, f, self.device)
+                fwd, bwd = pf.fwd, pf.bwd
+            else:
+                dev = f.to_device(self.device)
+                if isinstance(f, DeviceFactor):
+                    f = dev     # the compact factor stays resident
+                if schedules is None:
+                    schedules = build_schedules_batched([dev])[0]
+                fwd, bwd = schedules
+                pf = _PaddedFactor(g, dev, fwd, bwd)
             k_tier = pad_k(max(fwd.K, bwd.K)) if self.k_tiering else 0
             fkey = (family, pf.n_pad, k_tier)
             fleet = self._fleets.get(fkey)
@@ -945,7 +1017,7 @@ class Solver(FactorCache):
         self.handle = super().factor(g, key, **kw)
         return self.handle
 
-    def attach(self, g: Graph, f: ACFactor, **kw) -> PreconditionerHandle:
+    def attach(self, g: Graph, f, **kw) -> PreconditionerHandle:
         self.handle = super().attach(g, f, **kw)
         return self.handle
 

@@ -4,7 +4,8 @@ Rows are grouped by dependency level (level(i) = 1 + max level over
 in-neighbours); each level is one data-parallel sweep.  Three builders:
 
 * ``build_schedules`` / ``_levels_from_edges`` — host (numpy)
-  construction, kept as the test oracle;
+  construction, kept as the test oracle (``solve_levels_np`` solves over
+  it in float64, ``make_solver`` on a device, one scatter-add a level);
 * ``build_schedules_batched`` — the Solver's path: level propagation by
   relaxation on the device for a whole fleet at once, then row-indexed
   ELL panels (:class:`PackedSchedule`) that the masked fleet trisolve
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..kernels.runtime import resolve_device
 from .ref_ac import ACFactor, DeviceFactor
 from .parac import _next_pow2, _run_ranks
 
@@ -95,6 +97,37 @@ def solve_levels_np(sched: LevelSchedule, b: np.ndarray,
                   * y[sched.e_src[lo:hi]])
         y -= contrib
     return y[::-1] if flip else y
+
+
+def make_solver(sched: LevelSchedule, flip: bool = False, device=None):
+    """A ``b -> y`` unit-triangular solve over a host
+    :class:`LevelSchedule`, one scatter-add (``index_add_``) per non-empty
+    level, on ``device`` (the GPU unless the CPU is asked for; ``b`` is
+    moved there).  ``flip`` for the backward schedule (its indices are
+    stored flipped).  On CUDA the float scatter-add is atomic, so the
+    last bits may vary run to run; the level-swept paths
+    (``make_preconditioner``, the fleet) are the deterministic ones."""
+    dev = resolve_device(device)
+    per_level = []
+    for lv in range(sched.n_levels):
+        lo, hi = int(sched.level_ptr[lv]), int(sched.level_ptr[lv + 1])
+        if hi == lo:
+            continue
+        per_level.append(tuple(
+            torch.as_tensor(a[lo:hi], device=dev)
+            for a in (sched.e_dst.astype(np.int64),
+                      sched.e_src.astype(np.int64), sched.e_val)))
+
+    def solve(b: torch.Tensor) -> torch.Tensor:
+        b = torch.as_tensor(b, device=dev)
+        y = b.flip(0) if flip else b
+        for dst, src, val in per_level:
+            contrib = torch.zeros_like(y).index_add_(
+                0, dst, val.to(y.dtype) * y[src])
+            y = y - contrib
+        return y.flip(0) if flip else y
+
+    return solve
 
 
 def precond_apply_np(f: ACFactor, r: np.ndarray) -> np.ndarray:

@@ -1,5 +1,7 @@
-"""Public wrappers around the kernels: width padding for the elimination
-kernel, layout conversion, and the triangular solves built on the SpMV
+"""Public wrappers around the kernels: the SpMV kernels (``ell_spmv``,
+``ell_spmv_multi``, ``ell_spmv_fleet``), width padding for the
+elimination kernel, layout conversion, and the triangular solves built
+on the SpMV
 kernels — over the level rows of row-indexed fleet panels
 (``trisolve_fleet``), level-masked over row-indexed panels
 (``trisolve_masked``, ``trisolve_fleet_masked``), over the level slabs of
@@ -17,7 +19,6 @@ import torch
 from ..core.column_math import INVALID_ID, ColumnElim
 from . import sample_clique as _sc
 from . import spmv as _spmv
-from .spmv import ell_spmv, ell_spmv_multi
 
 
 def _next_pow2(x: int) -> int:
@@ -39,6 +40,19 @@ def sample_clique(ids, ws, fill, u) -> ColumnElim:
     return _sc.sample_clique(ids.contiguous(), ws.contiguous(),
                              fill.to(torch.int32).contiguous(),
                              u.contiguous())
+
+
+def ell_spmv(cols, vals, x) -> torch.Tensor:
+    """ELL SpMV ``y[i] = Σ_k vals[i, k]·x[cols[i, k]]``: cols int32 /
+    vals float32 ``[R, K]``, x float32 ``[n]`` → ``[R]`` (the ``ell_spmv``
+    kernel on a CUDA tensor, its plain version on a CPU one)."""
+    return _spmv.ell_spmv(cols, vals, x)
+
+
+def ell_spmv_multi(cols, vals, x) -> torch.Tensor:
+    """Multi-rhs ELL SpMV; x ``[n, B]`` (row-major) → ``[R, B]``, each
+    column equal to :func:`ell_spmv` of that column bit for bit."""
+    return _spmv.ell_spmv_multi(cols, vals, x)
 
 
 def ell_spmv_fleet(cols, vals, fidx, x) -> torch.Tensor:

@@ -104,6 +104,47 @@ def ell_spmv_fleet_plain(cols, vals, fidx, x) -> torch.Tensor:
     return y
 
 
+def group_width(K: int) -> int:
+    """Threads that share one row of a K-slot panel in the kernels
+    (``ell::group_width`` of ``csrc/ell_row.cuh``)."""
+    G = 1
+    while G < K and G < 32:
+        G <<= 1
+    return G
+
+
+def ell_spmv_fleet_error_bounds(cols, vals, fidx, x):
+    """The exact rows of ``ell_spmv_fleet`` and the forward-error bound of
+    each summation order against them, per (lane, row), as float64
+    ``(exact, kernel_bound, plain_bound)``.
+
+    ``exact`` sums the float32 products, each exact in float64.  A sum
+    whose every term passes through at most m roundings of unit roundoff
+    u is within ``γ_m·A`` of the exact sum, ``γ_m = m·u / (1 - m·u)`` and
+    ``A = Σ_k |vals·x|``.  The kernel's thread sums ``ceil(K/G)`` slots by
+    FMAs and the group adds by a ``log2 G`` butterfly; the plain version
+    makes K left-to-right steps, each rounded to float64 then float32.
+    Each bound takes ``u = 2^-24 + 2^-52``, covering the plain version's
+    double rounding, and adds ``2K·2^-53·A`` for the float64 rounding of
+    ``exact`` and of ``A``.  With K = 4096 and G = 32 the kernel's bound
+    is about 7.9e-6·A, below an average term's A/K."""
+    K = cols.shape[2]
+    G = group_width(K)
+    u = 2.0 ** -24 + 2.0 ** -52
+    exact, A = [], []
+    for lane, f in enumerate(fidx.tolist()):
+        t = vals[f].double() * x[lane].double()[cols[f].long()]
+        exact.append(t.sum(1))
+        A.append(t.abs().sum(1))
+    exact, A = torch.stack(exact), torch.stack(A)
+
+    def gamma(m):
+        return m * u / (1 - m * u) + 2 * K * 2.0 ** -53
+
+    m_kernel = -(-K // G) + (G.bit_length() - 1)
+    return exact, gamma(m_kernel) * A, gamma(K) * A
+
+
 def ell_sweep_fleet_plain(cols, vals, lens, rows, starts, fidx, y,
                           level_rows) -> None:
     """The plain version of ``ell_sweep_fleet``, on the same arguments and

@@ -20,9 +20,11 @@ promoted onto a second replica.
 ``--devices`` takes the torch form (``cuda:0,cuda:1``, card indices
 ``0,1`` or ``cpu``; fewer entries than replicas round-robin, so one card
 hosts every replica), ``--device`` is the shorthand for one device for
-all of them.  ``--precond`` names the preconditioner family; the port
-registers ``ac`` only, so any other name (and ``auto``, which chooses
-among the others) fails with the family registry's ``KeyError``.
+all of them.  ``--precond`` names the preconditioner family requests
+serve under (``ac``, ``ichol``, ``amg``, ``spai``), or ``auto``: the
+router's adaptive selector picks one per graph, cold graphs serving
+under ``ac``.  ``amg`` and ``spai`` build a dense ``n × n`` operator on
+the host, so they are for graphs of a few thousand vertices.
 """
 from __future__ import annotations
 
@@ -43,17 +45,9 @@ def build_cluster(*, suite="tiny", replicas=2, routing="affinity",
     """Stand up the cluster and register (not factor) the suite graphs.
     Returns ``(cluster, sizes)`` with graph ids = suite names."""
     from repro_torch.core.column_math import key_from_seed
-    from repro_torch.core.solver import get_family
     from repro_torch.data import graphs
     from repro_torch.launch.serve import SMALL_NAMES
     from repro_torch.serve import SolveCluster
-
-    if precond == "auto":
-        # the adaptive selector chooses among every family: all must exist
-        for fam in ("ichol", "amg", "spai"):
-            get_family(fam)
-    elif precond != "ac":
-        get_family(precond)
 
     spec = graphs.SUITE_MICRO if suite == "micro" else \
         graphs.SUITE_TINY if suite == "tiny" else \
@@ -334,9 +328,9 @@ def main(argv=None):
                     choices=["block", "reject"])
     ap.add_argument("--precond", default="ac",
                     choices=["ac", "ichol", "amg", "spai", "auto"],
-                    help="preconditioner family requests serve under "
-                         "(the port registers 'ac' only: the others and "
-                         "'auto' fail with the family registry's error)")
+                    help="preconditioner family requests serve under; "
+                         "'auto' = the router's adaptive per-graph "
+                         "selection (cold graphs serve under 'ac')")
     ap.add_argument("--select-epsilon", type=float, default=0.1,
                     help="exploration probability for --precond auto")
     ap.add_argument("--deadline-ms", type=float, default=None,

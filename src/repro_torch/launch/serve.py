@@ -33,9 +33,15 @@ hopeless-lane eviction):
         --requests 24 --arrival-rate 50 --async --policy deadline \
         --deadline-ms 2000
 
-``--precond`` names the preconditioner family; the port registers
-``ac`` only, so any other name (and ``auto``, which needs the others)
-fails with the family registry's ``KeyError``.
+``--precond`` names the preconditioner family the suite serves under
+(``ac``, ``ichol``, ``amg``, ``spai``), or ``auto``: every family is
+built for every graph and an :class:`AdaptiveSelector` picks one per
+request from serving telemetry (sync replay only).  ``amg`` and ``spai``
+build a dense ``n × n`` operator on the host, so they are for graphs of a
+few thousand vertices (``--suite small`` at most):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --suite micro \
+        --precond auto --device cpu
 """
 from __future__ import annotations
 
@@ -101,24 +107,18 @@ def build_service(*, suite="tiny", slots=8, iters_per_tick=8, chunk=128,
     the named admission policy.  ``precond`` selects the preconditioner
     family the suite is factored under (``"ac"`` uses the batched
     fleet factorization; other registered families construct per graph;
-    ``"auto"`` needs every registered family, and the port registers
-    ``"ac"`` only, so it fails with the registry's error).  ``device``:
-    where the cache lives (default: the GPU).  Returns
+    ``"auto"`` factors the AC fleet and every other registered family on
+    every graph, under ``"<graph>::<family>"`` ids, so the adaptive
+    replay chooses among resident factors).  ``device``: where the
+    cache lives (default: the GPU).  Returns
     ``(engine, sizes, factor_s, registry)`` — ``registry`` maps
     ``graph_id -> (graph, key)`` so adaptive replays can construct
     additional families lazily; reuse the engine across trace replays
     so the kernels' first-use build is paid once."""
     from repro_torch.core.column_math import key_from_seed
-    from repro_torch.core.solver import FactorCache, get_family
+    from repro_torch.core.solver import FactorCache, PRECOND_FAMILIES
     from repro_torch.data import graphs
     from repro_torch.serve import SolveEngine, make_policy
-
-    if precond == "auto":
-        # the adaptive replay chooses among every family: all must exist
-        for fam in ("ichol", "amg", "spai"):
-            get_family(fam)
-    elif precond != "ac":
-        get_family(precond)
 
     spec = graphs.SUITE_MICRO if suite == "micro" else \
         graphs.SUITE_TINY if suite == "tiny" else \
@@ -131,10 +131,22 @@ def build_service(*, suite="tiny", slots=8, iters_per_tick=8, chunk=128,
                              if memory_budget_mb else None),
         flight=flight, device=device)
     t0 = time.perf_counter()
-    if precond == "ac":
+    if precond in ("ac", "auto"):
         cache.factor_batched(list(built.values()),
                              [keys[name] for name in built],
                              graph_ids=list(built.keys()))
+        if precond == "auto":
+            # pre-build every other family too: the adaptive replay's
+            # selector then chooses among *resident* factors, so an
+            # exploration pick pays its serve cost, not a mid-trace
+            # construction stall that would punish whatever request
+            # happened to trigger it
+            for fam in sorted(PRECOND_FAMILIES):
+                if fam == "ac":
+                    continue
+                for name, g in built.items():
+                    cache.factor(g, keys[name], graph_id=f"{name}::{fam}",
+                                 family=fam)
     else:
         for name, g in built.items():
             cache.factor(g, keys[name], graph_id=name, family=precond,
@@ -208,6 +220,59 @@ def replay_trace(eng, trace):
     return trace_metrics(trace, done, t_serve), done
 
 
+def replay_trace_auto(eng, trace, *, registry, selector):
+    """Adaptive-family replay: each request's preconditioner family is
+    picked by ``selector`` at submit time (cold graphs fall back to AC),
+    the family's factor is constructed lazily into the engine's cache on
+    first pick (the construction stall is *in* the open-loop clock —
+    exploration pays its real cost), and every retirement is fed back
+    via ``selector.observe``.  Same metrics dict as
+    :func:`replay_trace`."""
+    import numpy as np
+    from collections import deque
+    pending = deque(trace)
+    done = []
+    t0 = time.perf_counter()
+
+    def _observe(r):
+        base, _, fam = r.graph_id.partition("::")
+        missed = r.status == "deadline_missed" or (
+            r.deadline_s is not None and r.latency_s > r.deadline_s)
+        # the lifecycle stamps carry the deconflated signal: pure
+        # service seconds as the serve estimate, the lazily-paid
+        # construction (stamped below) as its own component
+        serve = r.service_s if r.admit_time > 0.0 else r.latency_s
+        selector.observe(
+            base, fam or "ac", wall_s=r.latency_s, serve_s=serve,
+            construct_s=r.factor_wait_s if r.factor_mode else None,
+            iters=int(np.max(r.iters)) if r.iters is not None else None,
+            ok=r.status == "converged", deadline_ok=not missed)
+
+    while pending or eng.busy:
+        now = time.perf_counter() - t0
+        while pending and pending[0].arrival_s <= now:
+            req = pending.popleft()
+            fam = selector.pick(req.graph_id, deadline_s=req.deadline_s)
+            gid = req.graph_id if fam == "ac" \
+                else f"{req.graph_id}::{fam}"
+            if not eng.cache.fresh(gid):
+                g, key = registry[req.graph_id]
+                t_f0 = time.perf_counter()
+                eng.cache.factor(g, key, graph_id=gid, family=fam)
+                req.factor_wait_s = time.perf_counter() - t_f0
+                req.factor_mode = "factor"
+            req.graph_id = gid
+            eng.submit(req)
+        if eng.busy:
+            for r in eng.tick():
+                _observe(r)
+                done.append(r)
+        elif pending:
+            time.sleep(min(pending[0].arrival_s - now, 0.01))
+    t_serve = time.perf_counter() - t0
+    return trace_metrics(trace, done, t_serve), done
+
+
 def replay_trace_async(frontend, trace):
     """Open-loop replay through the async frontend: the caller thread
     only *submits* (at each request's ``arrival_s``); the frontend's
@@ -239,17 +304,22 @@ def run_service(*, suite="tiny", requests=24, slots=8, iters_per_tick=8,
                 arrival_rate=None, policy="fifo", max_skips=None,
                 deadline_ms=None, use_async=False, max_queue=256,
                 overload="block", precond="ac", precond_params=None,
-                skew=None, return_engine=False, metrics=None, tracer=None,
-                flight=None, health=None, device=None):
+                select_epsilon=0.2, skew=None, return_engine=False,
+                metrics=None, tracer=None, flight=None, health=None,
+                device=None):
     """Build the service, replay a trace, return a metrics dict.  With
     ``warmup_requests`` > 0 a throwaway trace is replayed first through
     the *same* engine so the measured replay excludes the kernels'
     first-use build.
     ``use_async`` routes the replay through :class:`SolveFrontend`
     (background driver thread, futures, bounded ingress queue).
-    ``precond`` fixes the serving preconditioner family; ``skew`` makes
-    the trace Zipf-hot."""
-    eng, sizes, t_factor, _ = build_service(
+    ``precond`` fixes the serving preconditioner family, or ``"auto"``
+    replays through an :class:`~repro_torch.serve.AdaptiveSelector`
+    (sync replay only); ``skew`` makes the trace Zipf-hot."""
+    if precond == "auto" and use_async:
+        raise ValueError("--precond auto uses the sync replay loop "
+                         "(selector feedback rides eng.tick retirement)")
+    eng, sizes, t_factor, registry = build_service(
         suite=suite, slots=slots, iters_per_tick=iters_per_tick,
         chunk=chunk, fill_slack=fill_slack,
         memory_budget_mb=memory_budget_mb, policy=policy,
@@ -258,14 +328,49 @@ def run_service(*, suite="tiny", requests=24, slots=8, iters_per_tick=8,
         flight=flight, health=health, device=device)
     gids = list(sizes)
     deadline_s = deadline_ms / 1e3 if deadline_ms else None
+    selector = None
+    if precond == "auto":
+        from repro_torch.serve import AdaptiveSelector
+        selector = AdaptiveSelector(seed=seed, epsilon=select_epsilon)
     if warmup_requests:
         # same seed: the warmup trace is a prefix-identical replay (sans
         # arrival gaps), so every kernel the measured trace launches is
         # already built.  No deadlines: a slow first tick must not evict
         # warmup lanes.
+        if selector is not None:
+            # a first pass *outside* the selector: serve every family on
+            # every graph at every pow2 admission width the trace can
+            # produce, so each (family, bucket)'s first serve (the
+            # kernels' build, the first allocations at its shapes) is
+            # paid before the selector times any family and cannot pass
+            # for the family being expensive
+            import numpy as np
+            from repro_torch.core.parac import _next_pow2
+            from repro_torch.serve import SolveRequest
+            wrng = np.random.default_rng(seed + 1)
+            widths = sorted({_next_pow2(j)
+                             for j in range(1, min(max_nrhs, slots) + 1)})
+            fam_trace = []
+            for name in gids:
+                for fam in ("ac", "ichol", "amg", "spai"):
+                    for j in widths:
+                        wb = wrng.normal(
+                            size=(j, sizes[name])).astype(np.float32)
+                        wb -= wb.mean(axis=1, keepdims=True)
+                        fam_trace.append(SolveRequest(
+                            rid=-1 - len(fam_trace),
+                            graph_id=(name if fam == "ac"
+                                      else f"{name}::{fam}"),
+                            b=wb if j > 1 else wb[0],
+                            tol=1e-6, maxiter=500))
+            replay_trace(eng, fam_trace)
         warm = make_trace(gids, sizes, warmup_requests, seed=seed,
                           max_nrhs=min(max_nrhs, slots), skew=skew)
-        replay_trace(eng, warm)
+        if selector is not None:
+            replay_trace_auto(eng, warm, registry=registry,
+                              selector=selector)
+        else:
+            replay_trace(eng, warm)
     trace = make_trace(gids, sizes, requests, seed=seed,
                        max_nrhs=min(max_nrhs, slots),
                        arrival_rate=arrival_rate, deadline_s=deadline_s,
@@ -284,6 +389,9 @@ def run_service(*, suite="tiny", requests=24, slots=8, iters_per_tick=8,
                                   failed=fs.failed, rejected=fs.rejected,
                                   queue_peak=fs.queue_peak,
                                   max_queue=fs.max_queue)
+    elif selector is not None:
+        metrics, done = replay_trace_auto(eng, trace, registry=registry,
+                                          selector=selector)
     else:
         metrics, done = replay_trace(eng, trace)
     ticks = eng.ticks - ticks_before
@@ -295,6 +403,8 @@ def run_service(*, suite="tiny", requests=24, slots=8, iters_per_tick=8,
                    arrival_rate=arrival_rate, seed=seed,
                    policy=policy, mode="async" if use_async else "sync",
                    precond=precond, device=str(eng.cache.device),
+                   selector=(selector.stats() if selector is not None
+                             else None),
                    frontend=frontend_stats,
                    cache=eng.cache.stats(),
                    engine=eng.stats().as_dict(),
@@ -341,9 +451,13 @@ def main(argv=None):
                          "reject with EngineOverloadedError")
     ap.add_argument("--precond", default="ac",
                     choices=["ac", "ichol", "amg", "spai", "auto"],
-                    help="preconditioner family the suite serves under "
-                         "(the port registers 'ac' only: the others and "
-                         "'auto' fail with the family registry's error)")
+                    help="preconditioner family the suite serves under; "
+                         "'auto' = adaptive per-graph selection "
+                         "(epsilon-greedy on serving telemetry); amg and "
+                         "spai build a dense n x n operator on the host, "
+                         "for graphs of a few thousand vertices")
+    ap.add_argument("--select-epsilon", type=float, default=0.2,
+                    help="exploration probability for --precond auto")
     ap.add_argument("--skew", type=float, default=None,
                     help="Zipf-like graph-choice skew (hot-graph trace)")
     ap.add_argument("--memory-budget-mb", type=int, default=None)
@@ -391,7 +505,8 @@ def main(argv=None):
             arrival_rate=args.arrival_rate, policy=args.policy,
             max_skips=args.max_skips, deadline_ms=args.deadline_ms,
             use_async=args.use_async, max_queue=args.max_queue,
-            overload=args.overload, precond=args.precond, skew=args.skew,
+            overload=args.overload, precond=args.precond,
+            select_epsilon=args.select_epsilon, skew=args.skew,
             metrics=registry, tracer=tracer, flight=flight, health=health,
             device=args.device)
     finally:
@@ -411,6 +526,12 @@ def main(argv=None):
           f"factor_batched={metrics['factor_s']:.2f}s "
           f"mode={metrics['mode']} policy={metrics['policy']} "
           f"precond={metrics['precond']} device={metrics['device']}")
+    if metrics["selector"]:
+        sel = metrics["selector"]
+        print(f"selector: picks={sel['picks']} "
+              f"by_family={sel['picks_by_family']} "
+              f"explores={sel['explores']} cold={sel['cold_picks']} "
+              f"deadline_misses={sel['deadline_misses']}")
     print(f"served {metrics['completed']}/{metrics['requests']} requests "
           f"({metrics['rhs_total']} rhs, {metrics['converged']} converged) "
           f"in {metrics['serve_s']:.2f}s over {metrics['slots']} slots, "

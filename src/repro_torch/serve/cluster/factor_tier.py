@@ -142,7 +142,9 @@ class FactorReplica(threading.Thread):
         f = fam.build(job.g, job.key, dtype=t.dtype, **kw)
         sch = None
         if fam.kind == "factor" and isinstance(f, DeviceFactor):
-            # the schedules follow the factor's device
+            # a host-built payload (ichol) moves to this worker's device,
+            # where its schedules are built
+            f = f.to_device(self.device)
             sch = build_schedules_batched([f])[0]
         return [(f, sch)]
 

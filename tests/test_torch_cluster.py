@@ -146,19 +146,33 @@ def test_affinity_prefers_holders_then_capacity():
 
 
 def test_auto_selects_among_registered_families_only(gset):
-    """``precond="auto"`` chooses among the registered families — AC
-    alone in the port — and a family that is not registered is refused."""
+    """``precond="auto"`` chooses among the registered families — the
+    reference's four — serving each pick under its family-qualified id;
+    a fixed ``"ichol"`` cluster constructs and serves, and a family that
+    is not registered is refused."""
     with _cluster(gset, precond="auto", select_epsilon=1.0) as cl:
-        assert cl.selector.families == ("ac",)
+        assert cl.selector.families == ("ac", "ichol", "amg", "spai")
         rng = np.random.default_rng(2)
+        picked = []
         for _ in range(3):
             r = cl.submit("road", _rhs(rng, gset["road"].n), tol=1e-5,
                           maxiter=300).result(timeout=120)
-            assert r.status == "converged" and r.graph_id == "road"
+            base, _, fam = r.graph_id.partition("::")
+            assert r.status == "converged" and base == "road"
+            picked.append(fam or "ac")
         sel = cl.stats().selector
-        assert sel["picks_by_family"] == {"ac": 3}
+        assert sum(sel["picks_by_family"].values()) == 3
+        assert {f for f, k in sel["picks_by_family"].items() if k} \
+            == set(picked)
+    with SolveCluster(precond="ichol", devices="cpu", replicas=1,
+                      slots=2, cache_kw=CACHE_KW) as cl:
+        cl.register(gset["road"], key_from_seed(0), graph_id="road")
+        r = cl.submit("road", _rhs(np.random.default_rng(3),
+                                   gset["road"].n),
+                      tol=1e-5, maxiter=300).result(timeout=120)
+        assert r.status == "converged" and r.graph_id == "road::ichol"
     with pytest.raises(ValueError):
-        SolveCluster(precond="ichol", devices="cpu")
+        SolveCluster(precond="nope", devices="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -416,9 +430,11 @@ def test_cluster_launcher_on_cpu(capsys, tmp_path):
     assert m["completed"] == m["requests"] == 6
     assert m["cluster"]["submitted"] == m["cluster"]["routed"] == 6
     assert {r["device"] for r in m["cluster"]["per_replica"]} == {"cpu"}
-    with pytest.raises(KeyError):
-        launcher.main(["--suite", "micro", "--requests", "2", "--device",
-                       "cpu", "--precond", "spai"])
+    # another family serves through the same launcher
+    launcher.main(["--suite", "micro", "--requests", "2", "--device",
+                   "cpu", "--precond", "spai"])
+    text = capsys.readouterr().out
+    assert "served 2/2 requests" in text and "precond=spai" in text
 
 
 def test_launch_counts_exact_under_threads():

@@ -542,6 +542,46 @@ def test_cluster_pins_replicas_to_two_cards(dev):
         assert set(rs.cache["fleet_device_bytes_by_device"]) == {want}
 
 
+def test_cluster_ichol_tier_builds_on_card(dev, monkeypatch):
+    """A fixed ``"ichol"`` cluster on ``cuda:0`` with one factor replica:
+    the tier moves the host-built factor to the card and builds its
+    schedules there, the adopted handle's compact factor stays resident
+    on the card, and a request converges bitwise equal to a direct solve
+    on its replica."""
+    from repro_torch.core.column_math import key_from_seed
+    from repro_torch.data import graphs
+    from repro_torch.serve import SolveCluster
+    from repro_torch.serve.cluster import factor_tier
+    built_on = []
+    real = factor_tier.build_schedules_batched
+
+    def record(devs):
+        built_on.extend(str(d.device) for d in devs)
+        return real(devs)
+
+    monkeypatch.setattr(factor_tier, "build_schedules_batched", record)
+    g = graphs.grid2d(6, 6, seed=3)
+    b = np.random.default_rng(0).normal(size=g.n).astype(np.float32)
+    b -= b.mean()
+    with SolveCluster(precond="ichol", devices="cuda:0,cuda:0", replicas=1,
+                      factor_replicas=1, slots=2,
+                      cache_kw=dict(chunk=32, fill_slack=64,
+                                    strict=False)) as cl:
+        cl.register(g, key_from_seed(0), graph_id="g")
+        r = cl.submit("g", b, tol=1e-6, maxiter=300).result(timeout=600)
+        assert r.status == "converged" and r.graph_id == "g::ichol"
+        assert cl.stats().adoptions == 1
+        rep = cl.replicas[r.replica]
+        h = rep.cache.peek(r.graph_id)
+        assert all(t.device.type == "cuda" for t in h.factor)
+        with torch.cuda.device(rep.device):
+            ref = h.solve(torch.from_numpy(b[None]).to(rep.device),
+                          tol=1e-6, maxiter=300)
+        assert np.array_equal(np.atleast_2d(r.x).view(np.uint32),
+                              ref.x.cpu().numpy().view(np.uint32))
+    assert built_on == ["cuda:0"]
+
+
 def test_spmv_wrappers_reject_bad_input(dev):
     c = torch.zeros((4, 3), dtype=torch.int32, device=dev)
     v = torch.zeros((4, 3), device=dev)
@@ -622,3 +662,107 @@ def test_flash_attention_rejects_bad_input(dev):
     q = buf[1:].view(1, 2, 64, 64)                       # 2 bytes off 16
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q, q_tile=64, block_k=64)
+
+
+# ---------------------------------------------------------------------------
+# The preconditioner zoo on the card: the full-row fleet kernel at the
+# amg / spai panel widths, and every family through the cache and engine
+# ---------------------------------------------------------------------------
+
+def test_full_row_fleet_kernel_within_forward_error_bound(dev):
+    """The full-row ``ell_spmv_fleet`` at amg's panel width (K = 4096),
+    rows of mixed signs that nearly cancel (each row's values made
+    mean-zero, as amg's deflated operator's are): the kernel and its plain
+    version each within their own summation order's forward-error bound of
+    the exact row sums on 8 lanes over two panels, one launch, and each
+    lane alone bitwise equal to the same lane in the batch."""
+    rng = np.random.default_rng(5)
+    F, R, K, n, L = 2, 512, 4096, 4096, 8
+    cols = np.stack([np.stack([rng.permutation(n)[:K] for _ in range(R)])
+                     for _ in range(F)]).astype(np.int32)
+    vals = rng.normal(size=(F, R, K))
+    vals = (vals - vals.mean(axis=2, keepdims=True)).astype(np.float32)
+    x = rng.normal(size=(L, n)).astype(np.float32)
+    fidx = np.array([0, 1, 1, 0, 1, 0, 0, 1], np.int32)
+    cols, vals, x, fidx = (torch.from_numpy(a).to(dev)
+                           for a in (cols, vals, x, fidx))
+    before = runtime.LAUNCHES.get("ell_spmv_fleet", 0)
+    y = spmv.ell_spmv_fleet(cols, vals, fidx, x)
+    assert runtime.LAUNCHES["ell_spmv_fleet"] == before + 1
+    p = spmv.ell_spmv_fleet_plain(cols, vals, fidx, x)
+    exact, kernel_bound, plain_bound = spmv.ell_spmv_fleet_error_bounds(
+        cols, vals, fidx, x)
+    assert bool(((y.double() - exact).abs() <= kernel_bound).all())
+    assert bool(((p.double() - exact).abs() <= plain_bound).all())
+    for lane in (0, 5):
+        alone = spmv.ell_spmv_fleet(cols, vals, fidx[lane:lane + 1],
+                                    x[lane:lane + 1].contiguous())
+        assert torch.equal(alone[0].view(torch.int32),
+                           y[lane].view(torch.int32))
+
+
+@pytest.mark.parametrize("fam", ["ac", "ichol", "amg", "spai"])
+def test_family_on_card(dev, fam):
+    """Each family factored into a cache on the card: its fleet lives
+    there, a 3-rhs solve converges with a lane alone taking the batch's
+    iterates bit for bit, and the apply runs where it should — an spmv
+    family one full-row ``ell_spmv_fleet`` launch per apply (1 + the
+    iterations of each solve) and no level sweep, a factor family the
+    level sweep and no full-row kernel."""
+    from repro_torch.core.column_math import key_from_seed
+    from repro_torch.core.solver import FactorCache
+    from repro_torch.data import graphs
+    g = graphs.grid2d(12, 12, seed=3)
+    c = FactorCache(chunk=32, strict=False, device=dev)
+    h = c.factor(g, key_from_seed(7), family=fam)
+    assert h.fleet.resident_device.startswith("cuda")
+    B = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(3, g.n)).astype(np.float32)).to(dev)
+    runtime.reset_launches()
+    rb = h.solve(B, tol=1e-6, maxiter=300)
+    counts = dict(runtime.LAUNCHES)
+    assert bool(rb.converged.all())
+    if h.kind == "spmv":
+        assert counts.get("ell_spmv_fleet", 0) == 1 + int(rb.iters.max())
+        assert counts.get("ell_sweep_fleet", 0) == 0
+    else:
+        assert counts.get("ell_sweep_fleet", 0) > 0
+        assert counts.get("ell_spmv_fleet", 0) == 0
+    r1 = h.solve(B[1], tol=1e-6, maxiter=300)
+    assert int(r1.iters) == int(rb.iters[1])
+    assert torch.equal(r1.x.view(torch.int32), rb.x[1].view(torch.int32))
+
+
+def test_engine_serves_every_family_bitwise_on_card(dev):
+    """One engine on the card serving all four families at once: each
+    request bitwise equal to its handle's direct solve, one bucket per
+    family, ``step_compiles == buckets``."""
+    from repro_torch.core.column_math import key_from_seed
+    from repro_torch.core.solver import FactorCache
+    from repro_torch.data import graphs
+    from repro_torch.serve import SolveEngine, SolveRequest
+    g = graphs.grid2d(12, 12, seed=3)
+    c = FactorCache(chunk=32, strict=False, device=dev)
+    fams = ("ac", "ichol", "amg", "spai")
+    hs = {f: c.factor(g, key_from_seed(7), graph_id=f"g::{f}", family=f)
+          for f in fams}
+    rng = np.random.default_rng(29)
+    eng = SolveEngine(c, slots=4, iters_per_tick=8)
+    reqs = []
+    for i, f in enumerate(fams):
+        b = rng.normal(size=(2, g.n)).astype(np.float32)
+        reqs.append(SolveRequest(rid=i, graph_id=f"g::{f}",
+                                 b=b - b.mean(axis=1, keepdims=True),
+                                 tol=1e-6, maxiter=500))
+        eng.submit(reqs[-1])
+    assert len(eng.run_until_drained()) == len(fams)
+    for r, f in zip(reqs, fams):
+        ref = hs[f].solve(torch.from_numpy(r.b).to(dev), tol=r.tol,
+                          maxiter=r.maxiter)
+        assert np.array_equal(np.atleast_2d(r.x).view(np.uint32),
+                              ref.x.cpu().numpy().view(np.uint32)), f
+        assert np.array_equal(np.atleast_1d(r.iters),
+                              ref.iters.cpu().numpy()), f
+    st = eng.stats()
+    assert st.buckets == st.families == len(fams)
+    assert st.step_compiles == st.buckets

@@ -473,10 +473,19 @@ def test_adopt_reference_factor_carries_state(micro):
 
 
 def test_family_registry_and_cache_probes(cache, micro):
-    assert sorted(PRECOND_FAMILIES) == ["ac"]
-    assert get_family("ac").kind == "factor"
+    """The registry holds the reference's four families with their apply
+    kinds; ``factor(..., family="ichol")`` admits a handle (evicted again
+    so the probes below see the fixture's three) and an unknown name
+    still raises the registry's ``KeyError``."""
+    assert sorted(PRECOND_FAMILIES) == ["ac", "amg", "ichol", "spai"]
+    assert {f: get_family(f).kind for f in PRECOND_FAMILIES} == {
+        "ac": "factor", "ichol": "factor", "amg": "spmv", "spai": "spmv"}
+    h = cache.factor(micro["road_micro"], key_from_seed(0), family="ichol",
+                     graph_id="road_micro::ichol")
+    assert h.family == "ichol" and h.kind == "factor" and h.n_levels > 1
+    cache.evict("road_micro::ichol")
     with pytest.raises(KeyError, match="unknown preconditioner family"):
-        cache.factor(micro["road_micro"], key_from_seed(0), family="ichol")
+        cache.factor(micro["road_micro"], key_from_seed(0), family="nope")
     with pytest.raises(ValueError):
         register_family("bad", "dense", lambda g, key, **kw: None)
     probe = cache.capacity_probe()
@@ -614,6 +623,12 @@ def test_serve_launcher_on_cpu(capsys, tmp_path, mode):
     m = json.loads(out.read_text())
     assert m["converged"] == m["completed"] == 6
     assert m["engine"]["admitted_reqs"] == 6
+    # another family serves the same way; an unknown one is refused
+    serve.main(["--suite", "micro", "--requests", "3", "--device", "cpu",
+                "--precond", "spai"]
+               + (["--async"] if mode == "async" else []))
+    text = capsys.readouterr().out
+    assert f"mode={mode} policy=fifo precond=spai device=cpu" in text
+    assert "served 3/3 requests (5 rhs, 3 converged)" in text
     with pytest.raises(KeyError, match="unknown preconditioner family"):
-        serve.main(["--suite", "micro", "--device", "cpu",
-                    "--precond", "spai"])
+        serve.build_service(suite="micro", device="cpu", precond="nope")

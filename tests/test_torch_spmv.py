@@ -115,3 +115,30 @@ def test_plain_ell_spmv_reads_a_row_range_in_place():
                        tops.ell_spmv(c, v, xt[:, 0])[10:47])
     assert torch.equal(tops.ell_spmv_multi(c[10:47], v[10:47], xt),
                        tops.ell_spmv_multi(c, v, xt)[10:47])
+
+
+@pytest.mark.parametrize("K", [33, 4096])
+def test_plain_fleet_within_its_forward_error_bound(K):
+    """``ell_spmv_fleet_error_bounds`` on rows whose terms nearly cancel
+    (each row's values made mean-zero, as amg's deflated operator's are):
+    the plain version is within its own order's bound of the exact row
+    sums, and a row missing its largest term breaks the kernel's bound,
+    so a kernel that dropped a slot could not pass it."""
+    rng = np.random.default_rng(K)
+    F, R, n, L = 2, 64, 4096, 3
+    cols = rng.integers(0, n, (F, R, K)).astype(np.int32)
+    vals = rng.normal(size=(F, R, K))
+    vals = (vals - vals.mean(axis=2, keepdims=True)).astype(np.float32)
+    x = rng.normal(size=(L, n)).astype(np.float32)
+    c, v, xt = (torch.from_numpy(a) for a in (cols, vals, x))
+    fidx = torch.tensor([1, 0, 1], dtype=torch.int32)
+    exact, kernel_bound, plain_bound = tspmv.ell_spmv_fleet_error_bounds(
+        c, v, fidx, xt)
+    assert bool((kernel_bound < plain_bound).all())
+    p = tspmv.ell_spmv_fleet_plain(c, v, fidx, xt)
+    assert bool(((p.double() - exact).abs() <= plain_bound).all())
+    t = v[fidx.long()].double() * torch.stack(
+        [xt[lane].double()[c[f].long()] for lane, f in
+         enumerate(fidx.tolist())])
+    dropped = exact - t.gather(2, t.abs().argmax(2, keepdim=True))[..., 0]
+    assert bool(((dropped - exact).abs() > kernel_bound).all())
