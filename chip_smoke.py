@@ -235,6 +235,42 @@ to a plain version while a GPU is present):
            panel's live slots in CSR (within gamma_K sum_k |v x| of the
            exact row sums, a bound for any order) and the bound of the
            live slots.
+  dist     the distributed paths (core.dist on torch.distributed, meshes
+           from launch.mesh), after [zoo]'s device state is released.
+           (1) NCCL, world size 1, in this process: the 64^3 graph,
+           [main]'s factor through make_preconditioner and [main]'s 1-rhs
+           b; the communicator set up by one all-reduce first, then,
+           launch counts and all-reduces counted from 0 around each,
+           sharded_pcg and laplacian_pcg (tol 1e-6, maxiter 500), timed
+           in the order A B B A, the first of each checked: x,
+           iterations and relres bitwise equal, one all-reduce an
+           iteration, the same ell_sweep launches and no other kernel;
+           then batched_factorize of keys 0 and 1 (chunk 256, fill_slack
+           256: the strict run's final slack, W = 512): key 0's slice,
+           compacted by ensemble_factor, equal to [main]'s factor bit for
+           bit (col_ptr, rows, vals, D), sample_clique_round launched once
+           a round (the keys' longest run, up to the next 8-round check)
+           and the standalone sample_clique never.  (2) gloo, world size 4
+           on the one card (NCCL refuses two ranks on one card), spawned
+           processes over a TCPStore on 127.0.0.1 that must all report
+           within 300 s (a rank that fails or exits fails the phase); the
+           parent built the kernels in [build] and factors
+           grid3d(32,32,32,'uniform',seed=2) (nnz-sort) with [main]'s
+           settings and 8 keys non-strict at its final slack.  Each rank:
+           the sharded matvec within 2e-4 of the float64 host matvec,
+           sharded_pcg (tol 1e-6) converged with x and iterations bitwise
+           equal across ranks, batched_factorize of the 8 keys (2 a rank)
+           with every rank's state equal and each key's compacted slice
+           equal to the parent's single-device factor bit for bit;
+           sample_clique_round and ell_sweep launched on every rank.  (3)
+           examples/torch_quickstart.py, torch_sparsify.py and
+           torch_spectral_embedding.py through main() on the card at their
+           own sizes: every solve converged, sample_clique_round and the
+           sweeps (ell_sweep; ell_sweep_multi for the block solves)
+           launched.  Printed: walls, iterations, all-reduce counts and
+           sizes, rounds and launches of each part.  The kernel table's
+           sample_clique_round and ell_sweep rows carry (1)'s launches as
+           dist_launches.
 
 The build phase also prints the number of HGMMA (wgmma) instructions in
 the attention library's SASS, where cuobjdump exists.
@@ -272,8 +308,9 @@ BF16_TC_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # a row's optional keys: launches made only to compare a kernel with what
-# replaced it on the main path, apart from the main path's own count
-EXTRA_KEYS = ("comparison_launches",)
+# replaced it on the main path, apart from the main path's own count; and
+# the kernel's launches on [dist]'s world-1 path
+EXTRA_KEYS = ("comparison_launches", "dist_launches")
 
 
 def log(msg: str) -> None:
@@ -2492,6 +2529,360 @@ def zoo_timing(dev, zoo):
     return rows
 
 
+DIST_SILENT = ("sample_clique", "ell_spmv_fleet", "ell_sweep_fleet",
+               "ell_spmv", "ell_spmv_multi", "flash_attention")
+# the world-4 run on one card: ranks, keys (two a rank), the graph's side
+# and the time the spawned ranks get before the phase fails
+DIST_WORLD = 4
+DIST_KEYS = 8
+DIST_SIDE = 32
+DIST_LIMIT_S = 300
+EXAMPLES = (("torch_quickstart", ("sample_clique_round", "ell_sweep")),
+            ("torch_sparsify", ("sample_clique_round", "ell_sweep_multi")),
+            ("torch_spectral_embedding", ("sample_clique_round",
+                                          "ell_sweep_multi")))
+
+
+class AllReduceTally:
+    """Counts torch.distributed.all_reduce calls while the ``with`` block
+    runs (the port's dist module calls it through the module)."""
+
+    def __enter__(self):
+        import torch.distributed as tdist
+        self.count = 0
+        self._real = tdist.all_reduce
+
+        def counted(*a, **kw):
+            self.count += 1
+            return self._real(*a, **kw)
+
+        tdist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as tdist
+        tdist.all_reduce = self._real
+        return False
+
+
+def digest(*arrays) -> str:
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(np.asarray(a)).view(np.uint8))
+    return h.hexdigest()
+
+
+def factor_digest(f) -> str:
+    return digest(*(getattr(f, k) for k in FACTOR_FIELDS))
+
+
+def dist_graph(side: int):
+    from repro_torch.data import graphs
+    return permuted(graphs.grid3d(side, side, side, "uniform", seed=2))
+
+
+def dist_vectors(n: int):
+    """The world-4 run's seeded x (for the matvec) and b (for the PCG)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return (rng.normal(size=n).astype(np.float32),
+            rng.normal(size=n).astype(np.float32))
+
+
+def dist_rank(rank: int, world: int, port: int, dev: str, side: int,
+              factor: dict, slack: int, keys, out) -> None:
+    """One rank of the world-4 run (a spawned process): gloo over one
+    store, every rank on ``dev`` (the one card).  Puts (rank, results) on
+    ``out``."""
+    import traceback
+    try:
+        sys.path.insert(0, str(SRC))
+        import numpy as np
+        import torch
+        import torch.distributed as tdist
+        from repro_torch.core import dist as D
+        from repro_torch.core.convert import factor_from_numpy
+        from repro_torch.core.laplacian import laplacian_matvec_np
+        from repro_torch.core.trisolve import make_preconditioner
+        from repro_torch.kernels import runtime
+        from repro_torch.launch.mesh import init_group, make_host_mesh
+        store = tdist.TCPStore("127.0.0.1", port, world, is_master=False)
+        dev = init_group(dev, rank=rank, world_size=world, store=store,
+                         backend="gloo")
+        mesh = make_host_mesh(world, 1, device=dev)
+        g = dist_graph(side)
+        x, b = dist_vectors(g.n)
+        apply = make_preconditioner(factor_from_numpy(**factor), device=dev)
+        runtime.reset_launches()
+        y = D.make_sharded_matvec(g, mesh)(torch.from_numpy(x).to(dev))
+        y = y.cpu().numpy()
+        y_host = laplacian_matvec_np(g, x.astype(np.float64))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = D.sharded_pcg(g, mesh, apply, torch.from_numpy(b).to(dev),
+                            tol=1e-6, maxiter=500)
+        torch.cuda.synchronize()
+        t_pcg = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st = D.batched_factorize(g, keys, mesh, chunk=256, fill_slack=slack)
+        torch.cuda.synchronize()
+        t_bf = time.perf_counter() - t0
+        out.put((rank, dict(
+            mv_ok=bool(np.allclose(y, y_host, rtol=2e-4, atol=2e-4)),
+            mv_err=float(np.abs(y - y_host).max()), y=digest(y),
+            x=res.x.cpu().numpy(), iters=int(res.iters),
+            relres=float(res.relres), converged=bool(res.converged),
+            t_pcg=t_pcg, t_bf=t_bf,
+            state=digest(*(t.cpu().numpy() for t in st)),
+            rounds=st.n_rounds.tolist(), overflow=st.overflow.tolist(),
+            factors=[factor_digest(D.ensemble_factor(g, st, k))
+                     for k in range(len(keys))],
+            launches=dict(runtime.LAUNCHES))))
+        tdist.destroy_process_group()
+    except BaseException:
+        out.put((rank, dict(error=traceback.format_exc())))
+
+
+def dist_world1(dev, g, main_f, b1):
+    """[dist] part 1: NCCL, world size 1, in this process, at 64^3."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.core import dist as D
+    from repro_torch.core.column_math import key_from_seed
+    from repro_torch.core.convert import factor_from_numpy
+    from repro_torch.core.pcg import laplacian_pcg
+    from repro_torch.core.trisolve import make_preconditioner
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.mesh import init_group, make_host_mesh
+    init_group(dev, rank=0, world_size=1, store=tdist.HashStore())
+    try:
+        mesh = make_host_mesh(1, 1, device=dev)
+        group = mesh.get_group("data")
+        backend = tdist.get_backend(group)
+        check(backend == "nccl", f"dist: the world-1 mesh runs on {backend}")
+        # the communicator is set up at the group's first collective: once
+        # per group, outside the timed solves
+        t0 = time.perf_counter()
+        tdist.all_reduce(torch.zeros(1, device=dev), group=group)
+        torch.cuda.synchronize()
+        log(f"[dist] world 1: NCCL communicator set-up (first all-reduce) "
+            f"{time.perf_counter() - t0:.3f}s")
+        apply = make_preconditioner(factor_from_numpy(**main_f), device=dev)
+        b = torch.from_numpy(b1).to(dev)
+        solves = {"sharded_pcg": lambda: D.sharded_pcg(
+                      g, mesh, apply, b, tol=1e-6, maxiter=500),
+                  "laplacian_pcg": lambda: laplacian_pcg(
+                      g, apply, b, tol=1e-6, maxiter=500)}
+        # A B B A: the first solve after make_preconditioner pays its
+        # first-use costs; the first of each is the one checked
+        runs, walls = {}, {}
+        for name in ("sharded_pcg", "laplacian_pcg", "laplacian_pcg",
+                     "sharded_pcg"):
+            torch.cuda.synchronize()
+            runtime.reset_launches()
+            with AllReduceTally() as tally:
+                t0 = time.perf_counter()
+                r = solves[name]()
+                torch.cuda.synchronize()
+                walls.setdefault(name, []).append(time.perf_counter() - t0)
+            runs.setdefault(name, (r, tally.count, dict(runtime.LAUNCHES)))
+        (rs, ar, l_sh), (rl, _, l_lib) = (runs["sharded_pcg"],
+                                          runs["laplacian_pcg"])
+        it = int(rs.iters)
+        t_sh, t_lib = (" / ".join(f"{t:.3f}" for t in walls[k])
+                       for k in ("sharded_pcg", "laplacian_pcg"))
+        log(f"[dist] world 1 (nccl) 64^3 n={g.n}: sharded_pcg {t_sh}s "
+            f"(first / last of A B B A) iters={it} "
+            f"relres={float(rs.relres):.3e}, {ar} all-reduces of "
+            f"{g.n * 4 / 2**20:.2f} MiB; laplacian_pcg {t_lib}s "
+            f"iters={int(rl.iters)}; launches {l_sh} / {l_lib}")
+        check(bool(rs.converged), "dist: world-1 sharded_pcg did not converge")
+        check(it == int(rl.iters) and bitwise_equal(rs.x, rl.x)
+              and bitwise_equal(rs.relres, rl.relres),
+              "dist: world-1 sharded_pcg differs from laplacian_pcg")
+        check(ar == it, f"dist: {ar} all-reduces for {it} iterations")
+        check(l_sh.get("ell_sweep", 0) > 0
+              and l_sh.get("ell_sweep", 0) == l_lib.get("ell_sweep", 0),
+              f"dist: ell_sweep launches {l_sh} against laplacian_pcg's "
+              f"{l_lib}")
+        rr = true_relres(g, rs.x.cpu().numpy(), b1)
+        check(rr < 1e-4, f"dist: world-1 true residual {rr:.2e}")
+        log("[dist] world-1 sharded_pcg == laplacian_pcg bit for bit (x, "
+            f"iterations, relres); true residual {rr:.2e}")
+
+        keys = np.stack([key_from_seed(0), key_from_seed(1)])
+        torch.cuda.synchronize()
+        runtime.reset_launches()
+        with AllReduceTally() as tally:
+            t0 = time.perf_counter()
+            st = D.batched_factorize(g, keys, mesh, chunk=256,
+                                     fill_slack=256)
+            torch.cuda.synchronize()
+            t_bf = time.perf_counter() - t0
+        l_bf = dict(runtime.LAUNCHES)
+        f0 = D.ensemble_factor(g, st, 0)
+        rounds = st.n_rounds.tolist()
+        launched = l_bf.get("sample_clique_round", 0)
+        log(f"[dist] world 1 batched_factorize of 2 keys 64^3 (chunk 256, "
+            f"fill_slack 256, W 512): {t_bf:.3f}s, rounds {rounds}, "
+            f"overflow {st.overflow.tolist()}, {tally.count} all-reduce "
+            f"({st.pool_row.numel() * 8 / 2**30:.2f} GiB of pool); "
+            f"launches {l_bf}")
+        check(same_factor(f0, main_f),
+              "dist: key 0 of batched_factorize differs from [main]'s factor")
+        check(max(rounds) <= launched < max(rounds) + 8,
+              f"dist: {launched} sample_clique_round launches for "
+              f"{max(rounds)} rounds")
+        check(l_bf.get("sample_clique", 0) == 0,
+              "dist: batched_factorize launched the standalone sample_clique")
+        log("[dist] key 0 of batched_factorize == [main]'s factor bit for "
+            "bit (col_ptr, rows, vals, D)")
+        launches = {k: l_sh.get(k, 0) + l_bf.get(k, 0)
+                    for k in set(l_sh) | set(l_bf)}
+        return launches
+    finally:
+        tdist.destroy_process_group()
+
+
+def dist_world4(dev, card):
+    """[dist] part 2: gloo, world size 4 on one card, spawned ranks, at
+    32^3; the kernels are built before (the ranks only load them)."""
+    import multiprocessing as mp
+    import queue
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.core.column_math import key_from_seed
+    from repro_torch.core.parac import factorize_wavefront
+    g = dist_graph(DIST_SIDE)
+    t0 = time.perf_counter()
+    f = factorize_wavefront(g, key_from_seed(0), chunk=256, fill_slack=32,
+                            strict=True, device=dev)
+    slack = f.stats["fill_slack"]
+    keys = np.stack([key_from_seed(k) for k in range(DIST_KEYS)])
+    single = [factorize_wavefront(g, k, chunk=256, fill_slack=slack,
+                                  strict=False, device=dev) for k in keys]
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    check(factor_digest(single[0]) == factor_digest(f),
+          "dist: key 0's non-strict factor differs from its strict one")
+    store = tdist.TCPStore("127.0.0.1", 0, None, True,
+                           wait_for_workers=False)
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=dist_rank, args=(
+        r, DIST_WORLD, store.port, str(dev), DIST_SIDE, host_factor(f), slack,
+        keys, out)) for r in range(DIST_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        while len(res) < DIST_WORLD:
+            check(time.perf_counter() - t0 < DIST_LIMIT_S,
+                  f"dist: world-{DIST_WORLD} ranks {sorted(res)} of "
+                  f"{DIST_WORLD} reported within {DIST_LIMIT_S}s")
+            try:
+                r, d = out.get(timeout=1)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode is not None and r not in res]
+                check(not dead, f"dist: ranks {dead} exited without a "
+                                f"result")
+                continue
+            check("error" not in d, f"dist: rank {r} failed:\n"
+                                    f"{d.get('error')}")
+            res[r] = d
+        for p in procs:
+            p.join(timeout=30)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    t_world = time.perf_counter() - t0
+    r0 = res[0]
+    t_pcg, t_bf = (", ".join(f"{res[r][k]:.3f}" for r in range(DIST_WORLD))
+                   for k in ("t_pcg", "t_bf"))
+    log(f"[dist] world {DIST_WORLD} (gloo, one card) {DIST_SIDE}^3 n={g.n}: "
+        f"ranks done in {t_world:.1f}s (spawn included); sharded matvec max "
+        f"abs err {r0['mv_err']:.3e} against the float64 host matvec; "
+        f"sharded_pcg iters={r0['iters']} relres={r0['relres']:.3e} "
+        f"{t_pcg}s; batched_factorize of {DIST_KEYS} keys (fill_slack "
+        f"{slack}) {t_bf}s, "
+        f"rounds {r0['rounds']}, overflow {r0['overflow']}; single-device "
+        f"factors {t_single:.2f}s; rank 0 launches {r0['launches']}")
+    for r in range(DIST_WORLD):
+        d = res[r]
+        check(d["mv_ok"], f"dist: rank {r}'s sharded matvec is {d['mv_err']:.3e}"
+                          f" from the host matvec (limit 2e-4)")
+        check(d["converged"], f"dist: rank {r}'s sharded_pcg did not converge")
+        check(d["iters"] == r0["iters"] and d["y"] == r0["y"]
+              and np.array_equal(d["x"].view(np.uint32),
+                                 r0["x"].view(np.uint32)),
+            f"dist: rank {r}'s matvec or PCG differs from rank 0's")
+        check(d["state"] == r0["state"],
+              f"dist: rank {r}'s batched state differs from rank 0's")
+        for name in ("sample_clique_round", "ell_sweep"):
+            check(d["launches"].get(name, 0) > 0,
+                  f"dist: rank {r} never launched {name}")
+    for k, fk in enumerate(single):
+        check(r0["factors"][k] == factor_digest(fk)
+              and r0["rounds"][k] == fk.stats["rounds"],
+              f"dist: key {k}'s slice differs from the single-device "
+              f"engine's factor")
+    rr = true_relres(g, r0["x"], dist_vectors(g.n)[1])
+    check(rr < 1e-4, f"dist: world-{DIST_WORLD} true residual {rr:.2e}")
+    log(f"[dist] world {DIST_WORLD}: every rank's x and batched state equal "
+        f"bit for bit; each key's slice == the single-device engine's factor "
+        f"bit for bit; true residual {rr:.2e}; {card}")
+
+
+def dist_examples(dev):
+    """[dist] part 3: the three examples through their main()."""
+    import importlib.util
+    import torch
+    from repro_torch.kernels import runtime
+    for name, kernels in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        torch.cuda.synchronize()
+        runtime.reset_launches()
+        t0 = time.perf_counter()
+        res = mod.main(device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(runtime.LAUNCHES)
+        log(f"[dist] example {name}: {wall:.2f}s, iterations "
+            f"{res['iters']}, launches {launches}")
+        check(res["converged"], f"dist: example {name} did not converge")
+        for k in kernels:
+            check(launches.get(k, 0) > 0,
+                  f"dist: example {name} never launched {k}")
+
+
+def phase_dist(dev, g64, main_f, card):
+    """The [dist] phase (see the module docstring).  Returns the world-1
+    path's launch counts."""
+    import numpy as np
+    from repro_torch.kernels import runtime
+    t_phase = time.time()
+    b1 = np.random.default_rng(0).normal(size=g64.n).astype(np.float32)
+    launches = dist_world1(dev, g64, main_f, b1)
+    for name in DIST_SILENT:
+        check(launches.get(name, 0) == 0,
+              f"dist: the world-1 path launched {name}")
+    dist_world4(dev, card)
+    dist_examples(dev)
+    runtime.reset_launches()
+    log(f"[dist] phase passed in {time.time() - t_phase:.1f}s; {card}")
+    return launches
+
+
 def device_ms_per_launch(fn, n: int = 20, tries: int = 3):
     """Device time of one call of ``fn`` (one kernel launch): the busy
     time of ``n`` back-to-back calls in one trace over ``n``, so the host's
@@ -2878,6 +3269,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     zoo = phase_zoo(dev, g64, card)
     kernels += zoo_timing(dev, zoo)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_launches = phase_dist(dev, g64, main_f, card)
+    for r in kernels:
+        if r["name"] in ("sample_clique_round", "ell_sweep"):
+            r["dist_launches"] = dist_launches.get(r["name"], 0)
     log(f"[done] all phases passed in {time.time() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": [{k: r[k] for k in ROW_KEYS + EXTRA_KEYS
                                    if k in r} for r in kernels]}))

@@ -21,6 +21,17 @@ def key_from_jax(key_data) -> np.ndarray:
     return k.astype(np.uint32)
 
 
+def keys_from_jax(key_data) -> np.ndarray:
+    """The port's ``(B, 2)`` uint32 keys from ``jax.random.key_data`` of a
+    batch of keys (e.g. ``jax.random.split(key, B)``), as
+    ``dist.batched_factorize`` takes them."""
+    k = np.asarray(key_data)
+    if k.ndim != 2 or k.shape[1] != 2:
+        raise ValueError(f"expected raw threefry keys of shape (B, 2), got "
+                         f"{k.shape}")
+    return k.astype(np.uint32)
+
+
 def factor_from_numpy(col_ptr, rows, vals, D, *,
                       stats: Optional[dict] = None,
                       perm: Optional[np.ndarray] = None) -> ACFactor:

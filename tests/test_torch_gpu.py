@@ -766,3 +766,73 @@ def test_engine_serves_every_family_bitwise_on_card(dev):
     st = eng.stats()
     assert st.buckets == st.families == len(fams)
     assert st.step_compiles == st.buckets
+
+
+def _one_rank_mesh(d):
+    """A one-rank group (NCCL on a card, gloo on the CPU) and its mesh."""
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import init_group, make_host_mesh
+    init_group(d, rank=0, world_size=1, store=tdist.HashStore())
+    return make_host_mesh(1, 1, device=d)
+
+
+def test_sharded_pcg_nccl_one_rank_equals_laplacian_pcg(dev):
+    """NCCL, one rank: ``sharded_pcg`` takes ``laplacian_pcg``'s iterates
+    bit for bit (x, iterations, relres) through the same ``ell_sweep``
+    launches."""
+    import torch.distributed as tdist
+    from repro_torch.core import dist as D
+    from repro_torch.core.column_math import key_from_seed
+    from repro_torch.core.parac import factorize_wavefront
+    from repro_torch.core.pcg import laplacian_pcg
+    from repro_torch.core.trisolve import make_preconditioner
+    from repro_torch.data import graphs
+    g = graphs.grid3d(8, 8, 8, "contrast", seed=0)
+    b = torch.from_numpy(np.random.default_rng(0).normal(size=g.n).astype(
+        np.float32)).to(dev)
+    mesh = _one_rank_mesh(dev)
+    try:
+        assert tdist.get_backend(mesh.get_group("data")) == "nccl"
+        apply = make_preconditioner(factorize_wavefront(
+            g, key_from_seed(0), chunk=64, device=dev))
+        runs = []
+        for solve in (lambda: D.sharded_pcg(g, mesh, apply, b, tol=1e-6,
+                                            maxiter=300),
+                      lambda: laplacian_pcg(g, apply, b, tol=1e-6,
+                                            maxiter=300)):
+            runtime.reset_launches()
+            runs.append((solve(), runtime.LAUNCHES.get("ell_sweep", 0)))
+    finally:
+        tdist.destroy_process_group()
+    (rs, ls), (rl, ll) = runs
+    assert bool(rs.converged) and ls > 0 and ls == ll
+    assert int(rs.iters) == int(rl.iters)
+    assert torch.equal(rs.x.view(torch.int32), rl.x.view(torch.int32))
+    assert torch.equal(rs.relres.view(torch.int32),
+                       rl.relres.view(torch.int32))
+
+
+def test_batched_factorize_on_card_equals_cpu(dev):
+    """One rank each: the card's ``batched_factorize`` state (NCCL) equals
+    the CPU's (gloo) bit for bit, through ``sample_clique_round``."""
+    import torch.distributed as tdist
+    from repro_torch.core import dist as D
+    from repro_torch.core.column_math import key_from_seed
+    from repro_torch.data import graphs
+    g = graphs.grid2d(12, 12, seed=1)
+    keys = np.stack([key_from_seed(k) for k in range(3)])
+    states = {}
+    for d in (dev, "cpu"):
+        mesh = _one_rank_mesh(d)
+        try:
+            runtime.reset_launches()
+            states[str(d)] = D.batched_factorize(g, keys, mesh, chunk=32)
+            launched = runtime.LAUNCHES.get("sample_clique_round", 0)
+        finally:
+            tdist.destroy_process_group()
+        assert (launched > 0) == (d == dev)
+    for a, c in zip(states[str(dev)], states["cpu"]):
+        a = a.cpu()
+        if a.dtype == torch.float32:
+            a, c = a.view(torch.int32), c.view(torch.int32)
+        assert torch.equal(a, c)
