@@ -272,6 +272,34 @@ to a plain version while a GPU is present):
            sample_clique_round and ell_sweep rows carry (1)'s launches as
            dist_launches.
 
+  lm       the LM serving path (repro_torch.models, .configs), after the
+           earlier phases' device state is released, TF32 off, with the
+           launch counters reset before it and read after it: no kernel of
+           the port may launch.  (1) Every smoke config in float32: the same
+           CPU-initialized parameters (torch.Generator seed 0) on cuda:0 and
+           on the CPU in this run, fwd_train's logits within 1e-3 of the
+           largest (1e-2 for recurrentgemma's float32-conditioned RG-LRU)
+           and loss_fn within 1e-4 relative; one backward on the card with
+           finite gradients that reach the embedding; prefill of 16 tokens
+           plus one decode_step against fwd_train at 2e-2 (whisper, whose
+           prefill orders cross-attention and MLP unlike its forward in the
+           reference too: finite logits).  (2) Every arch at full width in
+           bf16, B = 1, depth cut to one period of its pattern (gemma3-27b
+           6 layers, recurrentgemma-2b 3, whisper-tiny whole, 4 + 4, the
+           rest 2), parameters from init_params on the card (seed 11):
+           fwd_train over 4,096 seeded tokens, prefill of the first 3,968,
+           then a decode_step at each of the last 128 positions (past
+           gemma3's window, around recurrentgemma's rolling buffer); every
+           step's logits and prefill's last row within LM_BF16_TOL of
+           fwd_train's row (whisper: finite).  (3) qwen3-14b whole (40
+           layers, 14.77 B parameters, bf16): prefill of 2 prompts of 2,048
+           tokens, 32 greedy decode steps; finite logits, and the first
+           step's and prefill's last row within LM_BF16_TOL of fwd_train
+           over the 2,049 tokens.  Printed for (2) and (3): prefill ms and
+           tokens/s against 2·N·tokens flops at 989 TFLOP/s (N: the
+           parameters a token multiplies by), decode ms a step against the
+           weight bytes at 3.35 TB/s, peak allocated memory, walls and the
+           card.
 The build phase also prints the number of HGMMA (wgmma) instructions in
 the attention library's SASS, where cuobjdump exists.
 
@@ -2883,6 +2911,296 @@ def phase_dist(dev, g64, main_f, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# [lm]: the LM serving path (models/, configs/), no kernel of the port
+# ---------------------------------------------------------------------------
+
+# part 2's depth: one period of each arch's layer pattern (whisper whole)
+LM_DEPTH = {"mamba2-1.3b": 2, "qwen1.5-4b": 2, "qwen3-14b": 2,
+            "phi3-medium-14b": 2, "gemma3-27b": 6, "moonshot-v1-16b-a3b": 2,
+            "llama4-scout-17b-a16e": 2, "recurrentgemma-2b": 3,
+            "chameleon-34b": 2, "whisper-tiny": 4}
+LM_TOKENS = 4096          # train_4k's length: a multiple of both windows
+LM_PREFILL = 3968         # 31 of mamba2's 128-token chunks
+LM_PROMPTS, LM_PROMPT_LEN, LM_STEPS = 2, 2048, 32     # part 3
+# float32, card against CPU: the CPU parity tests' bounds (normwise,
+# of the largest |value|): 1e-3, 1e-2 for recurrentgemma's RG-LRU state
+LM_F32_TOL, LM_F32_RGLRU_TOL = 1e-3, 1e-2
+LM_SELF_TOL = 2e-2        # prefill + decode against fwd_train (float32)
+# bf16, a decode step's (or prefill's last) logits against fwd_train's row
+# at its position, normwise of the row's largest |logit|: the two paths
+# round differently (other matmul shapes, the S=1 SSD step, the cache's
+# single-query softmax), and a near-tie of an MoE router can flip; on the
+# H100 the worst rows read 1.9e-2 (dense and recurrent archs, 2-6
+# layers), 4.8e-2 (qwen3-14b, 40 layers) and 7.3e-2 (llama4's top-1
+# router, one row; its other rows equal bit for bit)
+LM_BF16_TOL = 0.15
+
+
+def lm_rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def lm_inputs(cfg, dev, B, S, seed, dtype):
+    """Seeded tokens [B, S] (int32) and, for whisper, frames scaled by
+    0.02, on ``dev``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
+                              .astype(np.int32)).to(dev)
+    enc = None
+    if cfg.is_encoder_decoder:
+        enc = torch.from_numpy((rng.normal(size=(B, cfg.encoder_len,
+                                                 cfg.d_model)) * 0.02)
+                               .astype(np.float32)).to(dev, dtype)
+    return tokens, enc
+
+
+def lm_smoke_configs(dev):
+    """Part 1: every smoke config in float32 on the card against the same
+    parameters on the CPU in this run."""
+    import torch
+    from repro_torch.configs import get_smoke_config, list_archs
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import init_params, tree_map, tree_paths
+    cpu = torch.device("cpu")
+    for arch in list_archs():
+        cfg = get_smoke_config(arch)
+        host = init_params(tf.pdefs(cfg), torch.Generator().manual_seed(0),
+                           torch.float32, cpu)
+        card = tree_map(lambda a: a.to(dev), host)
+        tokens, enc = lm_inputs(cfg, cpu, 2, 32, 7, torch.float32)
+        targets = torch.roll(tokens, -1, 1)
+        out = {}
+        for where, params in (("cpu", host), ("gpu", card)):
+            d = cpu if where == "cpu" else dev
+            args = [a.to(d) if a is not None else None
+                    for a in (tokens, targets, enc)]
+            with torch.no_grad():
+                logits, _ = tf.fwd_train(params, cfg, args[0], args[2])
+                loss, _ = tf.loss_fn(params, cfg, *args)
+            out[where] = (logits.cpu(), float(loss))
+        tol = LM_F32_RGLRU_TOL if arch == "recurrentgemma-2b" else LM_F32_TOL
+        err = lm_rel_err(out["gpu"][0], out["cpu"][0])
+        lerr = abs(out["gpu"][1] - out["cpu"][1]) / abs(out["cpu"][1])
+        check(err <= tol, f"lm: {arch} card logits {err:.3e} from the CPU's "
+                          f"(> {tol})")
+        check(lerr <= 1e-4, f"lm: {arch} card loss {lerr:.3e} from the CPU's")
+        # one backward on the card
+        params = tree_map(lambda a: a.clone().requires_grad_(True), card)
+        loss, _ = tf.loss_fn(params, cfg, tokens.to(dev), targets.to(dev),
+                             None if enc is None else enc.to(dev))
+        loss.backward()
+        check(all(torch.isfinite(a.grad).all() for _, a in tree_paths(params)),
+              f"lm: {arch} gradients not finite on the card")
+        check(float(params["embed"].grad.abs().max()) > 0,
+              f"lm: {arch} gradient does not reach the embedding")
+        del params, loss
+        # prefill (S = 16) + one decode step against fwd_train, as the
+        # reference's test; whisper's prefill orders cross-attention and
+        # MLP unlike its forward, so it is held to decoding finite logits
+        tk = tokens.to(dev)[:, :17]
+        encd = None if enc is None else enc.to(dev)
+        with torch.no_grad():
+            full, _ = tf.fwd_train(card, cfg, tk, encd)
+            pre, caches = tf.prefill(card, cfg, tk[:, :16], 32, encd,
+                                     dtype=torch.float32)
+            enc_out = None if encd is None else tf.encode(card, cfg, encd)
+            step, _ = tf.decode_step(card, cfg, caches, tk[:, 16:], 16,
+                                     enc_out)
+        check(bool(torch.isfinite(step).all()),
+              f"lm: {arch} decode logits not finite")
+        if not cfg.is_encoder_decoder:
+            for got, want, what in ((pre[:, -1], full[:, 15], "prefill"),
+                                    (step, full[:, 16], "decode")):
+                check(torch.allclose(got, want, rtol=LM_SELF_TOL,
+                                     atol=LM_SELF_TOL),
+                      f"lm: {arch} {what} logits differ from fwd_train")
+        log(f"[lm] {arch} smoke float32: card logits {err:.2e} and loss "
+            f"{lerr:.2e} from the CPU's, gradients finite, prefill+decode "
+            f"against fwd_train max "
+            f"{float((step - full[:, 16]).abs().max()):.2e}")
+
+
+def lm_matmul_params(cfg) -> int:
+    """Parameters a token's forward multiplies by: the active parameters,
+    less an input embedding table that is only looked up (not tied)."""
+    n = cfg.active_param_count()
+    return n if cfg.tie_embeddings else n - cfg.padded_vocab * cfg.d_model
+
+
+def lm_weight_bytes(params, cfg) -> int:
+    """Bytes of the weights one decode step reads: every parameter but an
+    untied input embedding table (one row of it)."""
+    from repro_torch.models.common import tree_paths
+    return sum(a.numel() * a.element_size() for p, a in tree_paths(params)
+               if not (p == ("embed",) and not cfg.tie_embeddings))
+
+
+def lm_report(tag, cfg, params, tokens, pre_ms, steps, dec_ms, card):
+    import torch
+    n = lm_matmul_params(cfg)
+    bound_pre = 2 * n * tokens / BF16_TC_OPS_PER_S * 1e3
+    wbytes = lm_weight_bytes(params, cfg)
+    bound_dec = wbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[lm] {tag}: prefill {tokens} tokens {pre_ms:.2f} ms, "
+        f"{tokens / pre_ms * 1e3:.0f} tokens/s (bound {bound_pre:.2f} ms: "
+        f"2·{n}·tokens flops at 989 TFLOP/s; {bound_pre / pre_ms:.3f} of "
+        f"it); decode {dec_ms:.3f} ms a step over {steps} steps (bound "
+        f"{bound_dec:.3f} ms: {wbytes} weight bytes at 3.35 TB/s; "
+        f"{bound_dec / dec_ms:.3f} of it); peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+
+
+def lm_full_width(dev, arch, card):
+    """Part 2: ``arch`` at full width in bf16, B = 1, depth cut to one
+    period; fwd_train over LM_TOKENS, prefill of LM_PREFILL, then a
+    decode step at every later position against fwd_train's row."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import init_params
+    cfg = dataclasses.replace(get_config(arch), n_layers=LM_DEPTH[arch])
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(tf.pdefs(cfg),
+                         torch.Generator(device=dev).manual_seed(11),
+                         torch.bfloat16, dev)
+    tokens, enc = lm_inputs(cfg, dev, 1, LM_TOKENS, 11, torch.bfloat16)
+    with torch.no_grad():
+        full, _ = tf.fwd_train(params, cfg, tokens, enc)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        pre, caches = tf.prefill(params, cfg, tokens[:, :LM_PREFILL],
+                                 LM_TOKENS, enc, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        pre_ms = (time.time() - t0) * 1e3
+        pre_last = pre[:, -1]
+        del pre
+        enc_out = None if enc is None else tf.encode(params, cfg, enc)
+        steps = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for i in range(LM_PREFILL, LM_TOKENS):
+            logits, caches = tf.decode_step(params, cfg, caches,
+                                            tokens[:, i:i + 1], i, enc_out)
+            steps.append(logits)
+        torch.cuda.synchronize()
+        dec_ms = (time.time() - t0) * 1e3 / len(steps)
+    steps = torch.stack(steps, 1)                       # [1, 128, V]
+    want = full[:, LM_PREFILL:]
+    check(bool(torch.isfinite(steps).all() and torch.isfinite(full).all()),
+          f"lm: {arch} logits not finite")
+    errs = [lm_rel_err(steps[:, j], want[:, j]) for j in range(steps.shape[1])]
+    pre_err = lm_rel_err(pre_last, full[:, LM_PREFILL - 1])
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    log(f"[lm] {arch} full width bf16, {cfg.n_layers} layers: decode "
+        f"against fwd_train max {errs[worst]:.3e} (position "
+        f"{LM_PREFILL + worst}), median {sorted(errs)[len(errs) // 2]:.3e}; "
+        f"prefill's last row {pre_err:.3e}")
+    if not cfg.is_encoder_decoder:
+        check(max(errs) <= LM_BF16_TOL and pre_err <= LM_BF16_TOL,
+              f"lm: {arch} bf16 decode differs from fwd_train by "
+              f"{max(errs):.3e} (> {LM_BF16_TOL})")
+    lm_report(f"{arch} ({cfg.n_layers} layers)", cfg, params, LM_PREFILL,
+              pre_ms, len(errs), dec_ms, card)
+
+
+def lm_whole_model(dev, card):
+    """Part 3: qwen3-14b at full width and depth serves LM_PROMPTS prompts
+    of LM_PROMPT_LEN tokens, then LM_STEPS greedy decode steps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import init_params, tree_paths
+    cfg = get_config("qwen3-14b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = init_params(tf.pdefs(cfg),
+                         torch.Generator(device=dev).manual_seed(12),
+                         torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    nbytes = sum(a.numel() * a.element_size() for _, a in tree_paths(params))
+    log(f"[lm] qwen3-14b: {cfg.param_count()} parameters "
+        f"({nbytes / 2**30:.2f} GiB bf16) initialized in "
+        f"{time.time() - t0:.2f}s")
+    prompts, _ = lm_inputs(cfg, dev, LM_PROMPTS, LM_PROMPT_LEN, 12,
+                           torch.bfloat16)
+    max_len = LM_PROMPT_LEN + LM_STEPS
+    with torch.no_grad():
+        tf.prefill(params, cfg, prompts[:, :64], max_len)   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        pre, caches = tf.prefill(params, cfg, prompts, max_len)
+        nxt = pre[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        pre_ms = (time.time() - t0) * 1e3
+        pre_last = pre[:, -1]
+        del pre
+        first = None
+        generated = [nxt]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for i in range(LM_STEPS):
+            logits, caches = tf.decode_step(
+                params, cfg, caches, nxt[:, None].to(torch.int32),
+                LM_PROMPT_LEN + i)
+            if first is None:
+                first = logits
+            nxt = logits.argmax(-1)
+            generated.append(nxt)
+        torch.cuda.synchronize()
+        dec_ms = (time.time() - t0) * 1e3 / LM_STEPS
+        check(bool(torch.isfinite(first).all() and
+                   torch.isfinite(logits).all()),
+              "lm: qwen3-14b decode logits not finite")
+        del caches
+        seq = torch.cat([prompts, generated[0][:, None].to(torch.int32)], 1)
+        full, _ = tf.fwd_train(params, cfg, seq)
+    err = lm_rel_err(first, full[:, LM_PROMPT_LEN])
+    pre_err = lm_rel_err(pre_last, full[:, LM_PROMPT_LEN - 1])
+    log(f"[lm] qwen3-14b {cfg.n_layers} layers: first decode step against "
+        f"fwd_train over {LM_PROMPT_LEN + 1} tokens {err:.3e}, prefill's "
+        f"last row {pre_err:.3e}; generated "
+        f"{torch.stack(generated, 1)[:, :8].tolist()}")
+    check(err <= LM_BF16_TOL and pre_err <= LM_BF16_TOL,
+          f"lm: qwen3-14b first decode step differs from fwd_train by "
+          f"{err:.3e} (> {LM_BF16_TOL})")
+    lm_report(f"qwen3-14b ({cfg.n_layers} layers, {LM_PROMPTS} prompts)",
+              cfg, params, LM_PROMPTS * LM_PROMPT_LEN, pre_ms, LM_STEPS,
+              dec_ms, card)
+
+
+def phase_lm(dev, card):
+    """The [lm] phase (see the module docstring)."""
+    import torch
+    from repro_torch.configs import list_archs
+    from repro_torch.kernels import runtime
+    t_phase = time.time()
+    runtime.reset_launches()
+    check(not any(runtime.LAUNCHES.values()), "lm: counters not reset")
+    lm_smoke_configs(dev)
+    log(f"[lm] part 1 (smoke configs, float32) {time.time() - t_phase:.1f}s")
+    for arch in list_archs():
+        t0 = time.time()
+        lm_full_width(dev, arch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[lm] {arch} part 2 {time.time() - t0:.1f}s")
+    t0 = time.time()
+    lm_whole_model(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[lm] part 3 (qwen3-14b) {time.time() - t0:.1f}s")
+    launched = {k: v for k, v in runtime.LAUNCHES.items() if v}
+    check(not launched, f"lm: kernels of the port launched: {launched}")
+    log(f"[lm] phase passed in {time.time() - t_phase:.1f}s, no kernel "
+        f"launched; {card}")
+
+
 def device_ms_per_launch(fn, n: int = 20, tries: int = 3):
     """Device time of one call of ``fn`` (one kernel launch): the busy
     time of ``n`` back-to-back calls in one trace over ``n``, so the host's
@@ -3275,6 +3593,9 @@ def main() -> None:
     for r in kernels:
         if r["name"] in ("sample_clique_round", "ell_sweep"):
             r["dist_launches"] = dist_launches.get(r["name"], 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_lm(dev, card)
     log(f"[done] all phases passed in {time.time() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": [{k: r[k] for k in ROW_KEYS + EXTRA_KEYS
                                    if k in r} for r in kernels]}))

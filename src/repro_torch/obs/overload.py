@@ -4,7 +4,7 @@ This is the signal half of the ROADMAP's elastic-control-plane item
 (modeled on vLLM production-stack's ``overload_detector/``): a
 detector consumes sampled series — sustained queue depth and arrival
 rate — and emits a state plus a scale recommendation that
-the cluster router (``SolveCluster``, not yet in the port) logs into
+:class:`~repro_torch.serve.cluster.router.SolveCluster` logs into
 ``ClusterStats.overload``.  Actuation (spawning/draining replicas)
 lands in a later PR; the hysteresis here is what makes that actuation
 safe to wire up (no flapping on a single burst sample).
