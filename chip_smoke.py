@@ -300,6 +300,42 @@ to a plain version while a GPU is present):
            parameters a token multiplies by), decode ms a step against the
            weight bytes at 3.35 TB/s, peak allocated memory, walls and the
            card.
+  train    the LM training path (repro_torch.optim, .checkpoint,
+           .distributed.steps, .train, launch/train.py,
+           examples/torch_train_lm.py), after [lm]'s device state is
+           released, TF32 off, with the launch counters reset before it and
+           read after it: no kernel of the port may launch.  (1) The
+           reference trainer tests' tiny config (qwen3's smoke family at 2
+           layers, d_model 64, vocab 256) in float32, B 4 x S 32, lr 1e-3:
+           the same CPU-initialized parameters (Trainer seed 0) and
+           adamw_init state on the CPU and on cuda:0 in this run, 5 steps at
+           grad_accum 2: each step's loss, ce, aux and gnorm within 1e-5
+           relative, the final parameters within 1e-3 of the largest
+           |value|; a card Trainer of 30 steps whose CE (every 5 steps)
+           decreases; resume on the card: 10 steps against 6 steps, a
+           checkpoint, a fresh Trainer restoring it onto the card and 4 more
+           steps, with the metrics, parameters and moments bit for bit
+           equal; examples/torch_train_lm.py through main() on the card with
+           --steps 100 --crash-at 40 (it asserts that CE decreases; it must
+           resume at 40); launch/train.py --smoke --steps 4 through main().
+           (2) qwen3-14b at full width, depth cut to 2 layers (2.216 B
+           parameters, 1.439 B multiplied per token), and (3) mamba2-1.3b
+           whole (48 layers, 1.342 B, tied embedding), each as a Trainer
+           with bf16 parameters and float32 moments (the reference's train
+           layout), grad_accum 2, 3 steps, no checkpoint directory, at B 2 x
+           S 4,096 (train_4k's length) and B 2 x S 2,048: finite loss, ce and
+           gnorm; every leaf's first moment nonzero; every leaf changed,
+           except one whose every |p| is at least 512 * 3 lr (a bf16
+           rounding absorbs any AdamW move there: mamba2's D at 1.0); the
+           moments float32; step 1's loss within 2e-2 relative of loss_fn of
+           the initial parameters on the same batch.  Printed for (2) and
+           (3): the step walls (synchronized), the median of steps 2-3,
+           tokens/s against 6·N·tokens flops at 989 TFLOP/s (N: the
+           parameters a token multiplies by; 71.5 ms and 33.4 ms), peak
+           allocated memory, then one more step traced by torch.profiler
+           (its wall, the device's busy time and its share of the untraced
+           step wall) and the AdamW update alone (synchronized), each
+           part's wall and the card.
 The build phase also prints the number of HGMMA (wgmma) instructions in
 the attention library's SASS, where cuobjdump exists.
 
@@ -320,6 +356,7 @@ import argparse
 import gc
 import json
 import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -3201,6 +3238,291 @@ def phase_lm(dev, card):
         f"launched; {card}")
 
 
+# ---------------------------------------------------------------------------
+# [train]: the LM training path (optim/, checkpoint/, distributed/steps,
+# train/, launch/train.py, examples/torch_train_lm.py), no kernel of the port
+# ---------------------------------------------------------------------------
+
+TRAIN_CELL = (4, 32)                      # part 1: B, S (the reference tests')
+TRAIN_CPU_STEPS, TRAIN_DECREASE_STEPS = 5, 30
+TRAIN_RESUME_STEPS, TRAIN_CRASH_AT = 10, 6
+TRAIN_EXAMPLE_ARGS = ["--steps", "100", "--crash-at", "40"]
+# float32, card against the CPU after TRAIN_CPU_STEPS steps: each step's
+# metrics within 1e-5 relative; the parameters within 1e-3 of the largest
+# |value| (the LM parity bound through the stack: an AdamW step amplifies a
+# gradient that is zero up to rounding to a move of up to lr either way)
+TRAIN_METRIC_TOL, TRAIN_PARAM_TOL = 1e-5, 1e-3
+# parts 2 and 3: (arch, layers or None for whole, B, S), bf16 parameters,
+# float32 moments, grad_accum 2, TRAIN_BIG_STEPS steps
+TRAIN_BIG = (("qwen3-14b", 2, 2, 4096), ("mamba2-1.3b", None, 2, 2048))
+TRAIN_BIG_STEPS, TRAIN_BIG_ACCUM = 3, 2
+TRAIN_LOSS_TOL = 2e-2     # step 1's loss against loss_fn of the initial
+                          # parameters on the same batch, relative (bf16)
+
+
+def tiny_train_cfg():
+    """The reference trainer tests' ``_tiny_cfg``: qwen3's smoke family at
+    2 layers, d_model 64, vocab 256."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config("qwen3-14b"), n_layers=2,
+                               d_model=64, n_heads=4, n_kv_heads=2,
+                               head_dim=16, d_ff=128, vocab=256,
+                               remat=False)
+
+
+def tiny_trainer(dev, steps, ckpt_dir=None, ckpt_every=100, grad_accum=1,
+                 log_every=1):
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.train import Trainer, TrainConfig
+    return Trainer(tiny_train_cfg(), None, ShapeCell("t", "train",
+                                                     TRAIN_CELL[1],
+                                                     TRAIN_CELL[0]),
+                   TrainConfig(steps=steps, ckpt_every=ckpt_every,
+                               ckpt_dir=ckpt_dir, lr=1e-3,
+                               grad_accum=grad_accum, log_every=log_every),
+                   device=dev)
+
+
+def state_bits_equal(a, b) -> bool:
+    """Two trees of tensors equal bit for bit, leaf for leaf."""
+    from repro_torch.models.common import tree_paths
+    pa, pb = list(tree_paths(a)), list(tree_paths(b))
+    return [p for p, _ in pa] == [p for p, _ in pb] and all(
+        x.dtype == y.dtype and bitwise_equal(x, y)
+        for (_, x), (_, y) in zip(pa, pb))
+
+
+def train_tiny(dev, tmp):
+    """Part 1: the tiny config in float32 on the card: against the CPU,
+    loss decreasing, resume bit for bit, the example and the launcher."""
+    import torch
+    from repro_torch.models.common import tree_map, tree_paths
+    from repro_torch.optim import adamw_init
+    metrics = ("loss", "ce", "aux", "gnorm")
+    # (a) the same CPU-initialized parameters on the CPU and on the card
+    t0 = time.time()
+    hist, params = {}, {}
+    cpu = tiny_trainer("cpu", TRAIN_CPU_STEPS, grad_accum=2)
+    cpu.init_or_restore()
+    card = tiny_trainer(dev, TRAIN_CPU_STEPS, grad_accum=2)
+    card.params = tree_map(lambda a: a.to(dev), cpu.params)
+    card.opt = adamw_init(card.params)
+    for where, tr in (("cpu", cpu), ("card", card)):
+        hist[where] = tr.run()
+        params[where] = dict(tree_paths(tr.params))
+    merr = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in
+               zip(hist["card"], hist["cpu"]) for k in metrics if w[k])
+    check(len(hist["card"]) == TRAIN_CPU_STEPS and all(
+        g[k] == w[k] for g, w in zip(hist["card"], hist["cpu"])
+        for k in metrics if not w[k]), "train: metric histories differ")
+    scale = max(float(a.abs().max()) for a in params["cpu"].values())
+    perr = max(float((params["card"][p].cpu() - a).abs().max())
+               for p, a in params["cpu"].items()) / scale
+    log(f"[train] tiny config, {TRAIN_CPU_STEPS} steps at grad_accum 2: "
+        f"card metrics within {merr:.2e} relative of the CPU's, parameters "
+        f"{perr:.2e} of the largest ({perr * scale / 1e-3:.3f} lr); "
+        f"{time.time() - t0:.1f}s")
+    check(merr <= TRAIN_METRIC_TOL,
+          f"train: card metrics {merr:.3e} from the CPU's (> "
+          f"{TRAIN_METRIC_TOL})")
+    check(perr <= TRAIN_PARAM_TOL,
+          f"train: card parameters {perr:.3e} from the CPU's (> "
+          f"{TRAIN_PARAM_TOL})")
+    # (b) loss decreases
+    t0 = time.time()
+    tr = tiny_trainer(dev, TRAIN_DECREASE_STEPS, log_every=5)
+    tr.init_or_restore()
+    h = tr.run()
+    check(h[-1]["ce"] < h[0]["ce"] and all(
+        torch.isfinite(torch.tensor(x["loss"])) for x in h),
+          f"train: CE did not decrease on the card ({h[0]['ce']:.4f} -> "
+          f"{h[-1]['ce']:.4f})")
+    log(f"[train] tiny config, {TRAIN_DECREASE_STEPS} steps on the card: CE "
+        f"{h[0]['ce']:.4f} (step 5) -> {h[-1]['ce']:.4f}; "
+        f"{time.time() - t0:.1f}s")
+    # (c) resume: 10 steps == 6 steps, a checkpoint, a fresh Trainer, 4
+    t0 = time.time()
+    full = tiny_trainer(dev, TRAIN_RESUME_STEPS)
+    full.init_or_restore()
+    h_full = full.run()
+    d = str(Path(tmp) / "resume")
+    part = tiny_trainer(dev, TRAIN_CRASH_AT, d, ckpt_every=TRAIN_CRASH_AT)
+    part.init_or_restore()
+    part.run()
+    res = tiny_trainer(dev, TRAIN_RESUME_STEPS, d)
+    check(res.init_or_restore() and res.step == TRAIN_CRASH_AT,
+          "train: no resume from the card's checkpoint")
+    check(all(a.device.type == "cuda" for _, a in
+              tree_paths((res.params, res.opt))),
+          "train: the checkpoint was not restored onto the card")
+    h_res = res.run()
+    same_metrics = [(g["step"], k) for g, w in
+                    zip(h_res, h_full[TRAIN_CRASH_AT:]) for k in metrics
+                    if g[k] != w[k]]
+    same_state = state_bits_equal(res.params, full.params) and \
+        state_bits_equal(res.opt, full.opt)
+    log(f"[train] resume on the card: {TRAIN_RESUME_STEPS} steps against "
+        f"{TRAIN_CRASH_AT} + checkpoint + {TRAIN_RESUME_STEPS - TRAIN_CRASH_AT}"
+        f": metrics differing {same_metrics or 'none'}, parameters and "
+        f"moments bitwise {'equal' if same_state else 'DIFFERENT'}; "
+        f"{time.time() - t0:.1f}s")
+    check(not same_metrics and same_state,
+          "train: the card's resume is not bit for bit")
+    # (d) the example, (e) the launcher, through their mains on the card
+    t0 = time.time()
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import torch_train_lm
+    finally:
+        sys.path.pop(0)
+    out = torch_train_lm.main(TRAIN_EXAMPLE_ARGS + [
+        "--ckpt-dir", str(Path(tmp) / "example")])
+    crash = int(TRAIN_EXAMPLE_ARGS[TRAIN_EXAMPLE_ARGS.index("--crash-at") + 1])
+    check(out["resumed_at"] == crash and all(
+        torch.isfinite(torch.tensor(x["ce"])) for x in out["hist"]),
+          "train: the example did not resume at its crash step")
+    log(f"[train] examples/torch_train_lm.py {' '.join(TRAIN_EXAMPLE_ARGS)} "
+        f"on the card: resumed at {out['resumed_at']}, CE "
+        f"{out['hist'][0]['ce']:.3f} -> {out['hist'][-1]['ce']:.3f}; "
+        f"{time.time() - t0:.1f}s")
+    t0 = time.time()
+    from repro_torch.launch import train as launch_train
+    h = launch_train.main(["--smoke", "--steps", "4"])
+    check(h[-1]["step"] == 4 and bool(torch.isfinite(
+        torch.tensor(h[-1]["loss"]))), "train: the launcher failed")
+    log(f"[train] launch/train.py --smoke --steps 4 on the card: loss "
+        f"{h[-1]['loss']:.4f}; {time.time() - t0:.1f}s")
+
+
+def train_big(dev, arch, layers, B, S, card):
+    """Parts 2 and 3: ``arch`` at full width (``layers`` deep, or whole) in
+    the reference's train layout: bf16 parameters, float32 moments."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_map, tree_paths
+    from repro_torch.optim import adamw_update
+    from repro_torch.train import Trainer, TrainConfig
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    t_part = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, None, ShapeCell("train", "train", S, B),
+                 TrainConfig(steps=TRAIN_BIG_STEPS, ckpt_dir=None,
+                             grad_accum=TRAIN_BIG_ACCUM, log_every=1),
+                 param_dtype=torch.bfloat16, device=dev)
+    tr.init_or_restore()
+    n = sum(a.numel() for _, a in tree_paths(tr.params))
+    n_mul = lm_matmul_params(cfg)
+    init = tree_map(torch.clone, tr.params)
+    tokens, targets = tr._host_batch(0)
+    with torch.no_grad():
+        want, _ = tf.loss_fn(tr.params, cfg, tokens, targets)
+    want = float(want)
+    del tokens, targets
+    stamps = []
+
+    def on_step(step, m):
+        torch.cuda.synchronize()
+        stamps.append(time.time())
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    hist = tr.run(on_step=on_step)
+    walls = [b - a for a, b in zip([t0] + stamps, stamps)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ok_finite = all(torch.isfinite(torch.tensor([m["loss"], m["ce"],
+                                                 m["gnorm"]])).all()
+                    for m in hist)
+    before = dict(tree_paths(init))
+    # a leaf may stay put only where bf16 rounding absorbs any AdamW move:
+    # a step moves a weight by at most about 3 lr, and a bf16 weight
+    # moves only by more than |p| 2^-9
+    lr = tr.tcfg.lr
+    unchanged = [(p, float(a.abs().min())) for p, a in tree_paths(tr.params)
+                 if torch.equal(a, before[p])]
+    stuck = [p for p, m in unchanged if m < 512 * 3 * lr]
+    no_grad = [p for p, a in tree_paths(tr.opt.mu) if not bool(a.any())]
+    dtypes = {str(a.dtype) for _, a in tree_paths((tr.opt.mu, tr.opt.nu))}
+    pdtypes = {str(a.dtype) for _, a in tree_paths(tr.params)}
+    lerr = abs(hist[0]["loss"] - want) / abs(want)
+    del init, before
+    tokens = B * S
+    wall = statistics.median(walls[1:])         # steps 2-3: warm
+    # where a step's time goes: one more step (batch 3) under the
+    # profiler, its device busy share; the AdamW update alone (the first
+    # moments standing in for gradients), synchronized
+    batch = tr._host_batch(TRAIN_BIG_STEPS)
+    t0 = time.time()
+    busy, events = device_busy_ms(
+        lambda: tr.step_fn(tr.params, tr.opt, *batch), host_ops=False)
+    traced_ms = (time.time() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = adamw_update(tr.opt.mu, tr.opt, tr.params, lr=lr)
+    torch.cuda.synchronize()
+    adamw_ms = (time.time() - t0) * 1e3
+    del out, batch
+    bound = 6 * n_mul * tokens / BF16_TC_OPS_PER_S
+    tag = f"{arch} ({cfg.n_layers} layers, B {B} x S {S})"
+    log(f"[train] {tag}: {n} parameters ({n_mul} multiplied per token), "
+        f"bf16 parameters {sorted(pdtypes)}, moments {sorted(dtypes)}; "
+        f"losses {[round(m['loss'], 5) for m in hist]}, ce "
+        f"{[round(m['ce'], 5) for m in hist]}, gnorm "
+        f"{[round(m['gnorm'], 4) for m in hist]}; step 1's loss "
+        f"{lerr:.3e} from loss_fn of the initial parameters ({want:.5f}); "
+        f"leaves unchanged (smallest |p|) {unchanged or 'none'}")
+    log(f"[train] {tag}: step walls {[round(w * 1e3, 1) for w in walls]} ms;"
+        f" steps 2-3 median {wall * 1e3:.1f} ms, {tokens / wall:.0f} "
+        f"tokens/s (bound {bound * 1e3:.1f} ms: 6·{n_mul}·{tokens} = "
+        f"{6 * n_mul * tokens:.3e} flops at 989 TFLOP/s; {bound / wall:.3f} "
+        f"of it); peak allocated {peak:.2f} GiB; a traced step "
+        f"{traced_ms:.1f} ms with the device busy {busy or 0:.1f} ms "
+        f"({(busy or 0) / (wall * 1e3):.3f} of the untraced step; {events} "
+        f"device events); AdamW alone {adamw_ms:.1f} ms; part "
+        f"{time.time() - t_part:.1f}s; {card}")
+    check(ok_finite, f"train: {arch} loss, ce or gnorm not finite")
+    check(not stuck, f"train: {arch} leaves unchanged: {stuck}")
+    check(not no_grad, f"train: {arch} leaves with no gradient: {no_grad}")
+    check(dtypes == {"torch.float32"} and pdtypes == {"torch.bfloat16"},
+          f"train: {arch} dtypes {pdtypes} / {dtypes}")
+    check(lerr <= TRAIN_LOSS_TOL, f"train: {arch} step 1's loss {lerr:.3e} "
+          f"from loss_fn's (> {TRAIN_LOSS_TOL})")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train(dev, card):
+    """The [train] phase (see the module docstring)."""
+    import tempfile
+    import torch
+    from repro_torch.kernels import runtime
+    t_phase = time.time()
+    runtime.reset_launches()
+    check(not any(runtime.LAUNCHES.values()), "train: counters not reset")
+    tmp = tempfile.mkdtemp(prefix="repro_torch_train_")
+    try:
+        train_tiny(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] part 1 (tiny config, float32) {time.time() - t_phase:.1f}s")
+    for arch, layers, B, S in TRAIN_BIG:
+        train_big(dev, arch, layers, B, S, card)
+    launched = {k: v for k, v in runtime.LAUNCHES.items() if v}
+    check(not launched, f"train: kernels of the port launched: {launched}")
+    log(f"[train] phase passed in {time.time() - t_phase:.1f}s, no kernel "
+        f"launched; {card}")
+
+
 def device_ms_per_launch(fn, n: int = 20, tries: int = 3):
     """Device time of one call of ``fn`` (one kernel launch): the busy
     time of ``n`` back-to-back calls in one trace over ``n``, so the host's
@@ -3218,16 +3540,19 @@ def device_ms_per_launch(fn, n: int = 20, tries: int = 3):
     return None
 
 
-def device_busy_ms(fn):
+def device_busy_ms(fn, host_ops: bool = True):
     """(busy ms, events) of one call of ``fn`` on the card: the union of
     the time spans of the device events (kernels, copies, fills) in a
-    torch.profiler trace of the call; (None, 0) when the trace holds none."""
+    torch.profiler trace of the call; (None, 0) when the trace holds none.
+    ``host_ops=False`` leaves the host's operators out of the trace (a
+    training step's hundred thousand of them take the profiler tens of
+    seconds to record)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host_ops else [])) as prof:
         fn()
         torch.cuda.synchronize()
     return union_ms([(e.time_range.start, e.time_range.end)
@@ -3596,6 +3921,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_lm(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train(dev, card)
     log(f"[done] all phases passed in {time.time() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": [{k: r[k] for k in ROW_KEYS + EXTRA_KEYS
                                    if k in r} for r in kernels]}))

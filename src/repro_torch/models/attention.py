@@ -76,6 +76,14 @@ def _dot_f32(eq: str, a, b):
     return torch.einsum(eq, a.float(), b.float())
 
 
+def _einsum_promoted(eq: str, a, b):
+    """``einsum`` in the promoted dtype of ``a`` and ``b``, as the
+    reference's ``jnp.einsum`` of mixed dtypes (a float32 decode over a
+    bf16 cache)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
 def _scale(cfg: ModelConfig, dtype) -> float:
     return round_to(cfg.head_dim ** -0.5, dtype)
 
@@ -243,7 +251,7 @@ def attn_decode(p, cfg: ModelConfig, x, cache, cache_pos, *, local: bool):
         logits = softcap(logits, cfg.attn_softcap)
         logits = torch.where(mask, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.einsum("bKGst,btKh->bsKGh", probs, v) \
+        out = _einsum_promoted("bKGst,btKh->bsKGh", probs, v) \
             .reshape(B_, S_, H_, hd_)
     else:
         ke, ve = _expand_kv(cfg, k), _expand_kv(cfg, v)
@@ -251,7 +259,7 @@ def attn_decode(p, cfg: ModelConfig, x, cache, cache_pos, *, local: bool):
         logits = softcap(logits, cfg.attn_softcap)
         logits = torch.where(mask, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.einsum("bhst,bthk->bshk", probs, ve)
+        out = _einsum_promoted("bhst,bthk->bshk", probs, ve)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, {"k": k, "v": v}
 

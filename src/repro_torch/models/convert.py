@@ -1,4 +1,5 @@
-"""Carry-across of the reference's LM parameters and decode caches.
+"""Carry-across of the reference's LM parameters, optimizer state and
+decode caches.
 
 The reference's trees arrive as numpy arrays (``np.asarray`` of each
 leaf, dicts and lists kept) and become the port's tensors on a device.
@@ -18,6 +19,7 @@ from . import transformer as tf
 from .common import tree_paths
 from .config import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.optim import OptState
 
 
 def _with_paths(spec, fn, path=()):
@@ -45,7 +47,10 @@ def _carry(tree, spec, device, dtype, what: str):
         if a.shape != tuple(s.shape):
             raise ValueError(f"{what}: {path} has shape {a.shape}, "
                              f"expected {tuple(s.shape)}")
-        t = torch.from_numpy(a)
+        if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: its bits
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
         return t.to(device=device, dtype=dtype or t.dtype)
 
     return _with_paths(spec, leaf)
@@ -69,3 +74,18 @@ def caches_from_numpy(tree, cfg: ModelConfig, batch: int, max_len: int, *,
     tails take the activations' dtype."""
     spec = tf.init_caches(cfg, batch, max_len, torch.float32, "meta")
     return _carry(tree, spec, resolve_device(device), None, "caches")
+
+
+def opt_state_from_numpy(tree, cfg: ModelConfig, *, device=None):
+    """The port's ``OptState`` from the reference's (``mu``, ``nu`` as trees
+    of numpy arrays, ``count`` a 0-d integer), each moment's paths and
+    shapes checked against ``pdefs(cfg)``, on ``device`` (the GPU when
+    not given): float32 moments and an int32 ``count``."""
+    mu, nu, count = tree
+    device = resolve_device(device)
+    spec = tf.pdefs(cfg)
+    return OptState(
+        mu=_carry(mu, spec, device, torch.float32, "opt.mu"),
+        nu=_carry(nu, spec, device, torch.float32, "opt.nu"),
+        count=torch.tensor(int(np.asarray(count)), dtype=torch.int32,
+                           device=device))

@@ -836,3 +836,75 @@ def test_batched_factorize_on_card_equals_cpu(dev):
         if a.dtype == torch.float32:
             a, c = a.view(torch.int32), c.view(torch.int32)
         assert torch.equal(a, c)
+
+
+def _tiny_train_cfg():
+    """The reference trainer tests' ``_tiny_cfg``."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config("qwen3-14b"), n_layers=2,
+                               d_model=64, n_heads=4, n_kv_heads=2,
+                               head_dim=16, d_ff=128, vocab=256,
+                               remat=False)
+
+
+def test_trainer_on_card_matches_cpu(dev):
+    """5 steps at grad_accum 2 of the tiny config, float32, TF32 off, from
+    the same CPU-initialized parameters: every metric within 1e-5
+    relative, the parameters within 1e-3 of the largest |value|; no
+    kernel of the port launches."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.models.common import tree_map, tree_paths
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import Trainer, TrainConfig
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runtime.reset_launches()
+        hist, params = {}, {}
+        host = None
+        for d in ("cpu", dev):
+            tr = Trainer(_tiny_train_cfg(), None, ShapeCell("t", "train", 32, 4),
+                         TrainConfig(steps=5, ckpt_dir=None, lr=1e-3,
+                                     grad_accum=2, log_every=1), device=d)
+            if host is None:
+                tr.init_or_restore()
+                host = tr.params
+            else:
+                tr.params = tree_map(lambda a: a.to(dev), host)
+                tr.opt = adamw_init(tr.params)
+            hist[str(d)] = tr.run()
+            params[str(d)] = dict(tree_paths(tr.params))
+        assert not any(runtime.LAUNCHES.values())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for got, want in zip(hist[str(dev)], hist["cpu"]):
+        for k in ("loss", "ce", "aux", "gnorm"):
+            assert abs(got[k] - want[k]) <= 1e-5 * abs(want[k]), (k, got)
+    scale = max(float(a.abs().max()) for a in params["cpu"].values())
+    for path, a in params["cpu"].items():
+        b = params[str(dev)][path]
+        assert b.device.type == "cuda"
+        assert float((b.cpu() - a).abs().max()) <= 1e-3 * scale, path
+
+
+def test_checkpoint_of_card_tensors_restores_onto_card(dev, tmp_path):
+    """CUDA leaves go to the host to be written and come back on the
+    ``tree_like`` leaves' device, bf16 and int32 bit for bit."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.optim import adamw_init
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = {"w": torch.randn(64, 32, device=dev, generator=g)
+              .to(torch.bfloat16),
+              "b": [torch.randn(7, device=dev, generator=g)]}
+    opt = adamw_init(params)
+    save_checkpoint(str(tmp_path), 2, (params, opt, 2))
+    like = ({"w": torch.empty(64, 32, dtype=torch.bfloat16, device=dev),
+             "b": [torch.empty(7, device=dev)]}, adamw_init(params), 0)
+    (p2, o2, step), s = restore_checkpoint(str(tmp_path), like)
+    assert s == 2 and int(step) == 2
+    assert p2["w"].device.type == "cuda" and p2["w"].dtype == torch.bfloat16
+    assert torch.equal(p2["w"].view(torch.int16), params["w"].view(torch.int16))
+    assert torch.equal(p2["b"][0].view(torch.int32),
+                       params["b"][0].view(torch.int32))
+    assert o2.count.device.type == "cuda" and o2.count.dtype == torch.int32
