@@ -336,6 +336,37 @@ to a plain version while a GPU is present):
            (its wall, the device's busy time and its share of the untraced
            step wall) and the AdamW update alone (synchronized), each
            part's wall and the card.
+  mesh     the LM sharding layer (repro_torch.distributed.ctx, the step
+           builders and Trainer over DeviceMeshes, launch/dryrun.py), after
+           [train]'s device state is released, TF32 off, with the launch
+           counters reset before it and read after it: no kernel of the
+           port may launch.  (1) NCCL, world 1, a (1, 1) mesh on the card:
+           the [train] tiny config's Trainer, 3 steps at grad_accum 2 over
+           the mesh, and the qwen3 smoke config's prefill of 16 tokens and
+           4 decode steps, each bit for bit equal to mesh=None (metrics,
+           parameters, moments, logits).  (2) Gloo, 4 ranks spawned beside
+           the one card (their tensors on its host; MESH_RANK_DEVICE gives
+           the reason), (2, 2) ("data", "model") and (2, 1, 2) ("pod",
+           "data", "model") meshes: qwen3, moonshot, mamba2,
+           recurrentgemma, gemma3 and whisper smoke configs in float32, a
+           train step at grad_accum 2 and a prefill plus 4 decode steps
+           (float32 caches), each against the same run with mesh=None on
+           the ranks' device: metrics within 1e-5 relative, parameters
+           within 1e-3 of the largest and 2.1 lr each, moments within 1e-3
+           (1e-2 recurrentgemma), logits within 1e-4 of the largest; every
+           rank's local shards the specs' division.  (3) qwen3-14b at full
+           width, 2 of 40 layers, bf16 (init_params on the card, seed 11),
+           4 gloo ranks (on the host, as (2)) on a (1, 4) mesh: prefill of
+           2 x 512 tokens, then 8 decode steps, logits within LM_BF16_TOL
+           of the one-device run on the card; the walls and each rank's
+           peak (host resident set) printed: host-bound by gloo, recorded,
+           not judged.  (4) Dry runs (started at the
+           phase's start, each its own low-priority process, on meta
+           tensors over a fake group): qwen3-14b train_4k and decode_32k on
+           16x16 and 2x16x16, moonshot train_4k on 16x16; each status ok,
+           its per-device peak bytes against the card's memory and its
+           compute, memory and collective seconds printed as estimates at
+           the H100's datasheet constants.
 The build phase also prints the number of HGMMA (wgmma) instructions in
 the attention library's SASS, where cuobjdump exists.
 
@@ -3523,6 +3554,556 @@ def phase_train(dev, card):
         f"launched; {card}")
 
 
+# ---------------------------------------------------------------------------
+# [mesh]: the LM sharding layer (distributed.ctx, the step builders and the
+# Trainer over DeviceMeshes, the dry run), no kernel of the port
+# ---------------------------------------------------------------------------
+
+MESH_ARCHS = ("qwen3-14b", "moonshot-v1-16b-a3b", "mamba2-1.3b",
+              "recurrentgemma-2b", "gemma3-27b", "whisper-tiny")
+MESH_SHAPES = {"2x2": ((2, 2), ("data", "model")),
+               "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
+MESH_WORLD = 4
+MESH_B, MESH_S, MESH_LR, MESH_ACCUM = 4, 32, 1e-3, 2
+MESH_PREFILL, MESH_DECODE, MESH_MAX_LEN = 16, 4, 32
+MESH_TRAIN_STEPS = 3                      # part 1's Trainer steps
+# part 2 against the one-device steps on the card (float32, float32
+# caches): the CPU mesh files' bounds
+MESH_METRIC_TOL, MESH_PARAM_TOL, MESH_LOGIT_TOL = 1e-5, 1e-3, 1e-4
+MESH_MOMENT_TOL, MESH_RGLRU_TOL, MESH_LR_MULTIPLE = 1e-3, 1e-2, 2.1
+# where part 2's and part 3's gloo ranks keep their tensors.  Not the
+# card: DTensor's collectives go through torch's functional collectives,
+# and on torch 2.11.0+cu128 gloo's all_gather_into_tensor of CUDA tensors
+# through them (_c10d_functional.all_gather_into_tensor, then wait_tensor)
+# kills every rank with a segmentation fault (exit -11), though the same
+# call through torch.distributed and an all_reduce through them run
+# (scripts/gloo_cuda_collectives.py).  So these ranks run on the card's
+# host; the one-device runs they are held against run on the card.
+MESH_RANK_DEVICE = "cpu"
+MESH_RANK_REASON = ("gloo's functional all_gather_into_tensor of CUDA "
+                    "tensors segfaults on torch 2.11 (every rank exit -11)")
+MESH_RANK_THREADS = 2                     # intra-op threads a host rank
+# part 3: arch, layers, mesh (data, model), B, prompt, decode steps
+MESH_TP = ("qwen3-14b", 2, (1, 4), 2, 512, 8)
+# part 4: (arch, cell, multi-pod) dry runs, each its own process
+MESH_DRYRUN = (("qwen3-14b", "train_4k", False),
+               ("qwen3-14b", "train_4k", True),
+               ("qwen3-14b", "decode_32k", False),
+               ("qwen3-14b", "decode_32k", True),
+               ("moonshot-v1-16b-a3b", "train_4k", False))
+MESH_LIMIT_S = 600
+
+
+def mesh_inputs(arch: str, dev):
+    """(cfg, params, opt, tokens, targets, enc_frames, enc_out) of the
+    arch's smoke config in float32: parameters from the CPU generator
+    (seed 0) and seeded inputs, moved to ``dev``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import init_params, tree_map
+    from repro_torch.optim import adamw_init
+    cfg = get_smoke_config(arch)
+    p = tree_map(lambda a: a.to(dev), init_params(
+        tf.pdefs(cfg), torch.Generator().manual_seed(0), torch.float32,
+        "cpu"))
+    tokens, enc = lm_inputs(cfg, dev, MESH_B, MESH_S, 1, torch.float32)
+    targets = torch.roll(tokens, -1, 1)
+    enc_out = None
+    if enc is not None:
+        with torch.no_grad():
+            enc_out = tf.encode(p, cfg, enc)
+    return cfg, p, adamw_init(p), tokens, targets, enc, enc_out
+
+
+def mesh_cells():
+    from repro_torch.configs.shapes import ShapeCell
+    return (ShapeCell("t", "train", MESH_S, MESH_B),
+            ShapeCell("p", "prefill", MESH_MAX_LEN, MESH_B))
+
+
+def mesh_run(arch: str, mesh, dev):
+    """One arch's train step (grad_accum 2), prefill and decode steps on
+    ``mesh`` (None: one device), all results whole on the host as numpy."""
+    import torch
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed import steps as S
+    from repro_torch.models.common import tree_paths
+    cfg, p, o, tok, tgt, enc, enc_out = mesh_inputs(arch, dev)
+    train, serve = mesh_cells()
+    faults = 0
+    if mesh is not None:
+        ps, os_ = S.train_state_specs(cfg, mesh)
+        p, o = S.shard_state(p, ps, mesh), S.shard_state(o, os_, mesh)
+        faults = mesh_shard_faults(mesh, (p, o), (ps, os_))
+    step = S.make_train_step(cfg, mesh, train, lr=MESH_LR,
+                             grad_accum=MESH_ACCUM)
+    p2, o2, m = step(p, o, tok, tgt, enc)
+    p2, o2 = S.unshard(p2), S.unshard(o2)
+    r = {f"m_{k}": float(v) for k, v in m.items()}
+    r["faults"] = faults
+    for name, tree in (("p", p2), ("mu", o2.mu), ("nu", o2.nu)):
+        for path, a in tree_paths(tree):
+            r[f"{name}/{'/'.join(map(str, path))}"] = a.detach().cpu().numpy()
+    for path, a in tree_paths(S.unshard(p)):
+        r[f"before/{'/'.join(map(str, path))}"] = a.detach().cpu().numpy()
+    pre = S.make_prefill(cfg, mesh, serve, cache_dtype=torch.float32)
+    dec = S.make_decode_step(cfg, mesh, serve)
+    logits, caches = pre(p, tok[:, :MESH_PREFILL], enc)
+    r["logits0"] = ctx.full(logits).cpu().numpy()
+    for i in range(MESH_DECODE):
+        pos = MESH_PREFILL + i
+        lg, caches = dec(p, caches, tok[:, pos:pos + 1], pos, enc_out)
+        r[f"logits{i + 1}"] = ctx.full(lg).cpu().numpy()
+    return r
+
+
+def mesh_shard_faults(mesh, state, specs) -> int:
+    """How many leaves of ``state`` (DTensors) this rank holds at another
+    shape than their spec in ``specs`` divides out."""
+    from repro_torch.distributed.pspec import mesh_shape
+    from repro_torch.models.common import tree_paths
+    sizes = mesh_shape(mesh).shape
+    bad = 0
+    for (_, a), (_, spec) in zip(tree_paths(state), tree_paths(specs)):
+        want = []
+        for n, part in zip(a.shape, spec):
+            ext = 1
+            for ax in ((part,) if isinstance(part, str) else (part or ())):
+                ext *= sizes[ax]
+            want.append(n // ext)
+        bad += tuple(a.to_local().shape) != tuple(want)
+    return bad
+
+
+def mesh_rank(rank: int, port: int, dev: str, out) -> None:
+    """One rank of [mesh] part 2 (a spawned process): gloo over one store,
+    every rank on ``dev``; every arch on both meshes.  Puts (rank, results)
+    on ``out``: rank 0's whole results, every rank's shard faults."""
+    import traceback
+    try:
+        dev = rank_start(rank, port, dev)
+        import torch.distributed as tdist
+        from torch.distributed.device_mesh import init_device_mesh
+        res, walls, faults = {}, {}, 0
+        for mname, (shape, names) in MESH_SHAPES.items():
+            mesh = init_device_mesh(dev.type, shape, mesh_dim_names=names)
+            for arch in MESH_ARCHS:
+                t0 = time.perf_counter()
+                r = mesh_run(arch, mesh, dev)
+                walls[(mname, arch)] = time.perf_counter() - t0
+                faults += r["faults"]
+                if rank == 0:
+                    res[(mname, arch)] = r
+        out.put((rank, dict(res=res, walls=walls, faults=faults,
+                            peak=rank_peak_gib(dev))))
+        tdist.destroy_process_group()
+    except BaseException:
+        out.put((rank, dict(error=traceback.format_exc())))
+
+
+def mesh_tp_rank(rank: int, port: int, dev: str, out) -> None:
+    """One rank of [mesh] part 3: qwen3-14b at full width on the (1, 4)
+    mesh; puts (rank, logits of rank 0, walls, peak GiB) on ``out``."""
+    import traceback
+    try:
+        dev = rank_start(rank, port, dev)
+        import torch.distributed as tdist
+        from repro_torch.distributed import ctx
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(*MESH_TP[2], device=dev)
+        logits, walls = mesh_tp_run(mesh, dev)
+        peak = rank_peak_gib(dev)
+        # a collective: every rank gathers, rank 0 reports
+        logits = [ctx.full(l).float().cpu().numpy() for l in logits]
+        out.put((rank, dict(logits=logits if rank == 0 else None,
+                            walls=walls, peak=peak)))
+        tdist.destroy_process_group()
+    except BaseException:
+        out.put((rank, dict(error=traceback.format_exc())))
+
+
+def mesh_tp_run(mesh, dev):
+    """Part 3 on ``mesh`` (None: one device): parameters from init_params
+    on the card (seed 11) moved to ``dev``, a prefill of B x prompt tokens
+    and the decode steps (teacher-forced).  (logits, walls)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.distributed import steps as S
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import init_params
+    from repro_torch.models.common import tree_map
+    arch, layers, _, B, prompt, n = MESH_TP
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    # drawn on the card wherever the ranks keep their tensors, so that
+    # every rank and the one-device run hold the same parameters
+    gen_dev = torch.device("cuda", 0) if torch.cuda.is_available() else dev
+    gen = torch.Generator(device=gen_dev).manual_seed(11)
+    p = tree_map(lambda a: a.to(dev),
+                 init_params(tf.pdefs(cfg), gen, torch.bfloat16, gen_dev))
+    if mesh is not None:
+        p = S.shard_state(p, S.train_state_specs(cfg, mesh)[0], mesh)
+    tokens, _ = lm_inputs(cfg, dev, B, prompt + n, 12, torch.bfloat16)
+    cell = ShapeCell("p", "prefill", prompt + n, B)
+    pre, dec = S.make_prefill(cfg, mesh, cell), S.make_decode_step(cfg, mesh,
+                                                                   cell)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    lg, caches = pre(p, tokens[:, :prompt])
+    sync()
+    walls = {"prefill": time.perf_counter() - t0, "decode": []}
+    logits = [lg[:, -1]]
+    for i in range(n):
+        t0 = time.perf_counter()
+        lg, caches = dec(p, caches, tokens[:, prompt + i:prompt + i + 1],
+                         prompt + i)
+        sync()
+        walls["decode"].append(time.perf_counter() - t0)
+        logits.append(lg)
+    return logits, walls
+
+
+def mesh_rank_device(dev) -> str:
+    """Where parts 2 and 3 put their ranks' tensors, said on its line."""
+    if MESH_RANK_DEVICE == "card":
+        return str(dev)
+    log(f"[mesh] gloo ranks on the card's host, not the card: "
+        f"{MESH_RANK_REASON}")
+    return "cpu"
+
+
+def rank_peak_gib(dev) -> float:
+    """This rank's peak: allocated on a card, the process's largest
+    resident set on the host."""
+    import resource
+    import torch
+    if dev.type == "cuda":
+        return torch.cuda.max_memory_allocated() / 2**30
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def rank_start(rank: int, port: int, dev: str):
+    """A spawned rank's set-up: the package on the path, TF32 off, a
+    host rank's threads capped, the gloo group joined.  Its device."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import init_group
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev == "cpu":
+        torch.set_num_threads(MESH_RANK_THREADS)
+    store = tdist.TCPStore("127.0.0.1", port, MESH_WORLD, is_master=False)
+    return init_group(dev, rank=rank, world_size=MESH_WORLD, store=store,
+                      backend="gloo")
+
+
+def spawn_ranks(target, dev, limit_s: int):
+    """Run ``target(rank, port, dev, out)`` in MESH_WORLD spawned ranks;
+    their results by rank.  Fails on a rank's error or the time limit."""
+    import multiprocessing as mp
+    import queue
+    import torch.distributed as tdist
+    store = tdist.TCPStore("127.0.0.1", 0, None, True,
+                           wait_for_workers=False)
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, store.port, dev, out))
+             for r in range(MESH_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        while len(res) < MESH_WORLD:
+            check(time.perf_counter() - t0 < limit_s,
+                  f"mesh: ranks {sorted(res)} of {MESH_WORLD} reported "
+                  f"within {limit_s}s")
+            try:
+                r, d = out.get(timeout=1)
+            except queue.Empty:
+                dead = {r: p.exitcode for r, p in enumerate(procs)
+                        if p.exitcode is not None and r not in res}
+                check(not dead, f"mesh: ranks exited without a result "
+                                f"(rank: exit code) {dead}")
+                continue
+            check("error" not in d, f"mesh: rank {r} failed:\n"
+                                    f"{d.get('error')}")
+            res[r] = d
+        for p in procs:
+            p.join(timeout=30)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    return res, time.perf_counter() - t0
+
+
+def mesh_world1(dev, card):
+    """[mesh] part 1: NCCL, world 1, a (1, 1) mesh on the card: bit for
+    bit the mesh=None path."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.distributed import steps as S
+    from repro_torch.launch.mesh import init_group, make_host_mesh
+    from repro_torch.train import Trainer, TrainConfig
+    init_group(dev, rank=0, world_size=1, store=tdist.HashStore())
+    try:
+        t0 = time.time()
+        mesh = make_host_mesh(1, 1, device=dev)
+        backend = tdist.get_backend(mesh.get_group("data"))
+        check(backend == "nccl", f"mesh: the world-1 mesh runs on {backend}")
+        hist, state = {}, {}
+        for name, m in (("mesh", mesh), ("none", None)):
+            tr = Trainer(tiny_train_cfg(), m,
+                         ShapeCell("t", "train", TRAIN_CELL[1],
+                                   TRAIN_CELL[0]),
+                         TrainConfig(steps=MESH_TRAIN_STEPS, ckpt_dir=None,
+                                     lr=1e-3, grad_accum=2, log_every=1),
+                         device=dev)
+            tr.init_or_restore()
+            hist[name] = tr.run()
+            state[name] = S.unshard((tr.params, tr.opt))
+        metrics = ("loss", "ce", "aux", "gnorm")
+        same_m = all(a[k] == b[k] for a, b in zip(hist["mesh"], hist["none"])
+                     for k in metrics)
+        same_s = state_bits_equal(state["mesh"], state["none"])
+        log(f"[mesh] world 1 (nccl, (1, 1)): tiny config, "
+            f"{MESH_TRAIN_STEPS} Trainer steps at grad_accum 2 over the mesh "
+            f"against mesh=None: metrics {'equal' if same_m else 'DIFFER'}, "
+            f"parameters and moments bitwise "
+            f"{'equal' if same_s else 'DIFFERENT'}; losses "
+            f"{[round(h['loss'], 6) for h in hist['mesh']]}")
+        check(same_m and same_s, "mesh: world-1 Trainer steps differ from "
+                                 "mesh=None")
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models import transformer as tf
+        from repro_torch.models.common import init_params
+        cfg = get_smoke_config("qwen3-14b")
+        p = init_params(tf.pdefs(cfg), torch.Generator(device=dev)
+                        .manual_seed(0), torch.float32, dev)
+        tokens, _ = lm_inputs(cfg, dev, MESH_B, MESH_PREFILL + MESH_DECODE,
+                              2, torch.float32)
+        _, cell = mesh_cells()
+        outs = {}
+        for name, m in (("mesh", mesh), ("none", None)):
+            pp = p if m is None else S.shard_state(
+                p, S.train_state_specs(cfg, m)[0], m)
+            pre, dec = S.make_prefill(cfg, m, cell), S.make_decode_step(
+                cfg, m, cell)
+            lg, caches = pre(pp, tokens[:, :MESH_PREFILL])
+            got = [S.unshard(lg)]
+            for i in range(MESH_DECODE):
+                pos = MESH_PREFILL + i
+                lg, caches = dec(pp, caches, tokens[:, pos:pos + 1], pos)
+                got.append(S.unshard(lg))
+            outs[name] = got
+        same = all(bitwise_equal(a, b) for a, b in zip(outs["mesh"],
+                                                        outs["none"]))
+        log(f"[mesh] world 1: qwen3 smoke prefill of {MESH_PREFILL} + "
+            f"{MESH_DECODE} decode steps (bf16 caches) over the mesh against "
+            f"mesh=None: logits bitwise {'equal' if same else 'DIFFERENT'}; "
+            f"part 1 {time.time() - t0:.1f}s; {card}")
+        check(same, "mesh: world-1 prefill/decode differ from mesh=None")
+    finally:
+        tdist.destroy_process_group()
+
+
+def mesh_compare(arch: str, got: dict, want: dict):
+    """(metric, parameter, moment, logit) errors of part 2's comparison,
+    each checked against its bound."""
+    import numpy as np
+    merr, mkey = max((abs(got[k] - want[k]) / abs(want[k]), k[2:])
+                     for k in want if k.startswith("m_") and want[k])
+    check(got["faults"] == 0, f"mesh: {arch} shards off their specs")
+    check(all(got[k] == want[k] for k in want if k.startswith("m_")
+              and not want[k]), f"mesh: {arch} metrics that are 0 differ")
+    errs = {}
+    for name in ("p", "mu", "nu"):
+        keys = [k for k in want if k.startswith(name + "/")]
+        check(keys and set(keys) == {k for k in got
+                                     if k.startswith(name + "/")},
+              f"mesh: {arch} {name} trees differ")
+        scale = max(float(np.abs(want[k]).max()) for k in keys)
+        errs[name] = max(float(np.abs(got[k].astype(np.float64)
+                                      - want[k]).max()) for k in keys) / scale
+        if name == "p":
+            lr_mult = max(float(np.abs(got[k].astype(np.float64)
+                                       - want[k]).max()) for k in keys) / \
+                MESH_LR
+    lerr = max(float(np.abs(got[f"logits{i}"].astype(np.float64)
+                            - want[f"logits{i}"]).max()
+                     / np.abs(want[f"logits{i}"]).max())
+               for i in range(MESH_DECODE + 1))
+    mom = MESH_RGLRU_TOL if arch == "recurrentgemma-2b" else MESH_MOMENT_TOL
+    check(merr <= MESH_METRIC_TOL, f"mesh: {arch} {mkey} {merr:.3e} relative "
+                                   f"(> {MESH_METRIC_TOL})")
+    check(errs["p"] <= MESH_PARAM_TOL and lr_mult <= MESH_LR_MULTIPLE,
+          f"mesh: {arch} parameters {errs['p']:.3e} of the largest, "
+          f"{lr_mult:.2f} lr")
+    check(max(errs["mu"], errs["nu"]) <= mom,
+          f"mesh: {arch} moments {errs['mu']:.3e} / {errs['nu']:.3e}")
+    check(lerr <= MESH_LOGIT_TOL, f"mesh: {arch} logits {lerr:.3e} (> "
+                                  f"{MESH_LOGIT_TOL})")
+    return merr, errs["p"], lr_mult, max(errs["mu"], errs["nu"]), lerr
+
+
+def mesh_world4(dev, card):
+    """[mesh] part 2: gloo, 4 ranks spawned on one card, the six smoke
+    configs on the (2, 2) and (2, 1, 2) meshes against the one-device
+    steps on the card."""
+    import torch
+    rank_dev = mesh_rank_device(dev)
+    # the one-device runs on the device the ranks use: this part holds the
+    # mesh path against mesh=None ([lm] and [train] hold card against host)
+    t0 = time.perf_counter()
+    want = {arch: mesh_run(arch, None, torch.device(rank_dev))
+            for arch in MESH_ARCHS}
+    t_one = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    res, wall = spawn_ranks(mesh_rank, rank_dev, MESH_LIMIT_S)
+    faults = sum(d["faults"] for d in res.values())
+    log(f"[mesh] world {MESH_WORLD} (gloo, ranks' tensors on {rank_dev}): "
+        f"ranks done in {wall:.1f}s (spawn included); one-device runs on "
+        f"{rank_dev} {t_one:.1f}s; rank peaks "
+        f"{[round(res[r]['peak'], 3) for r in range(MESH_WORLD)]} GiB "
+        f"({'allocated' if rank_dev != 'cpu' else 'host max RSS'}); local "
+        f"shards off their spec's division: {faults}")
+    check(faults == 0, f"mesh: {faults} local shards off the specs")
+    for (mname, arch), got in sorted(res[0]["res"].items()):
+        merr, perr, lr_mult, moerr, lerr = mesh_compare(arch, got,
+                                                        want[arch])
+        log(f"[mesh] {mname} {arch}: train step metrics {merr:.2e} "
+            f"relative, parameters {perr:.2e} of the largest ({lr_mult:.2f} "
+            f"lr), moments {moerr:.2e}; prefill + {MESH_DECODE} decode "
+            f"logits {lerr:.2e}; rank 0 {res[0]['walls'][(mname, arch)]:.1f}s")
+    log(f"[mesh] world {MESH_WORLD}: {len(res[0]['res'])} (mesh, arch) runs "
+        f"within the bounds; {card}")
+
+
+def mesh_tp(dev, card):
+    """[mesh] part 3: qwen3-14b at full width, 2 layers, bf16 on a (1, 4)
+    mesh of gloo ranks against one device."""
+    import torch
+    rank_dev = mesh_rank_device(dev)
+    torch.cuda.reset_peak_memory_stats()
+    want, walls1 = mesh_tp_run(None, dev)
+    peak1 = torch.cuda.max_memory_allocated() / 2**30
+    want = [w.float().cpu() for w in want]
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, wall = spawn_ranks(mesh_tp_rank, rank_dev, MESH_LIMIT_S)
+    got = [torch.from_numpy(g) for g in res[0]["logits"]]
+    errs = [lm_rel_err(g, w) for g, w in zip(got, want)]
+    arch, layers, shape, B, prompt, n = MESH_TP
+    dec = [statistics.median(res[r]["walls"]["decode"])
+           for r in range(MESH_WORLD)]
+    log(f"[mesh] {arch} full width, {layers} layers, bf16, {shape} mesh of "
+        f"gloo ranks (tensors on {rank_dev}): prefill of {B} x {prompt} "
+        f"{[round(res[r]['walls']['prefill'], 3) for r in range(MESH_WORLD)]}"
+        f" s a rank (one device {walls1['prefill']:.3f} s), decode step "
+        f"median {[round(d * 1e3, 1) for d in dec]} ms (one device "
+        f"{statistics.median(walls1['decode']) * 1e3:.1f} ms); rank peaks "
+        f"{[round(res[r]['peak'], 2) for r in range(MESH_WORLD)]} GiB "
+        f"({'allocated' if rank_dev != 'cpu' else 'host max RSS'}; one "
+        f"device {peak1:.2f} GiB); logits {max(errs):.3e} of the largest "
+        f"from one device (bound {LM_BF16_TOL}); ranks {wall:.1f}s; "
+        f"host-bound by gloo, recorded, not judged; {card}")
+    check(all(torch.isfinite(g).all() for g in got),
+          "mesh: TP logits not finite")
+    check(max(errs) <= LM_BF16_TOL, f"mesh: TP logits {max(errs):.3e} from "
+                                    f"one device (> {LM_BF16_TOL})")
+
+
+def mesh_dryrun_start(tmp):
+    """Part 4's dry runs, each a process of its own at low priority, started
+    at the phase's start: (process, tag, record path) each."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, mp in MESH_DRYRUN:
+        out = Path(tmp) / f"{arch}_{shape}_{int(mp)}"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--device", "cpu", "--out", str(out)]
+        if mp:
+            cmd.append("--multi-pod")
+        procs.append((subprocess.Popen(
+            cmd, env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            preexec_fn=lambda: os.nice(10)), (arch, shape, mp), out))
+    return procs, time.time()
+
+
+def mesh_dryrun_finish(procs, t_start, card):
+    """Part 4: wait for the dry runs and print their records."""
+    import torch
+    total = torch.cuda.get_device_properties(0).total_memory
+    try:
+        for p, (arch, shape, mp), out in procs:
+            left = MESH_LIMIT_S - (time.time() - t_start)
+            try:
+                log_text = p.communicate(timeout=max(left, 1))[0]
+            except subprocess.TimeoutExpired:
+                fail(f"mesh: the dry run of {arch} {shape} did not end "
+                     f"within {MESH_LIMIT_S}s of the phase's start")
+            tag = f"{arch}__{shape}__{'mp' if mp else 'sp'}"
+            check(p.returncode == 0, f"mesh: dry run {tag} exited "
+                                     f"{p.returncode}:\n{log_text[-3000:]}")
+            rec = json.loads((out / f"{tag}.json").read_text())
+            check(rec["status"] == "ok", f"mesh: dry run {tag}: "
+                                         f"{rec.get('error')}")
+            mem, t = rec["mem"], rec["roofline"]
+            log(f"[mesh] dry run {arch} {shape} {rec['mesh']}: per-device "
+                f"peak {mem['peak_bytes'] / 1e9:.2f} GB (arguments "
+                f"{mem['argument_bytes'] / 1e9:.2f}, temporaries "
+                f"{mem['temp_bytes'] / 1e9:.2f}) of the card's "
+                f"{total / 1e9:.1f} GB; estimate at the H100's datasheet "
+                f"constants, not a measurement: compute {t['compute_s']:.4g}"
+                f" s, memory {t['memory_s']:.4g} s, collective "
+                f"{t['collective_s']:.4g} s, dominant {t['dominant']}; "
+                f"flops {rec['cost']['flops']:.4g}, collective bytes "
+                f"{rec['cost']['coll_by_op']}; the dry run's own wall "
+                f"{rec['wall_s']} s (step {rec['compile_s']} s)")
+    finally:
+        for p, _, _ in procs:
+            if p.poll() is None:
+                p.kill()
+    log(f"[mesh] part 4: {len(procs)} dry runs in "
+        f"{time.time() - t_start:.1f}s (in parallel, from the phase's "
+        f"start); {card}")
+
+
+def phase_mesh(dev, card):
+    """The [mesh] phase (see the module docstring)."""
+    import tempfile
+    import torch
+    from repro_torch.kernels import runtime
+    t_phase = time.time()
+    runtime.reset_launches()
+    tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    try:
+        procs, t_dry = mesh_dryrun_start(tmp)
+        mesh_world1(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_world4(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_tp(dev, card)
+        mesh_dryrun_finish(procs, t_dry, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launched = {k: v for k, v in runtime.LAUNCHES.items() if v}
+    check(not launched, f"mesh: kernels of the port launched: {launched}")
+    log(f"[mesh] phase passed in {time.time() - t_phase:.1f}s, no kernel "
+        f"launched; {card}")
+
+
 def device_ms_per_launch(fn, n: int = 20, tries: int = 3):
     """Device time of one call of ``fn`` (one kernel launch): the busy
     time of ``n`` back-to-back calls in one trace over ``n``, so the host's
@@ -3924,6 +4505,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_mesh(dev, card)
     log(f"[done] all phases passed in {time.time() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": [{k: r[k] for k in ROW_KEYS + EXTRA_KEYS
                                    if k in r} for r in kernels]}))

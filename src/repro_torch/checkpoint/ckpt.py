@@ -14,6 +14,12 @@ the reference writes for its ml_dtypes bfloat16 arrays (``'descr':
 bit for bit.  A
 checkpoint is restored by the package that wrote it: ``sig`` describes
 the port's own trees.
+
+Checkpoints are mesh-agnostic: a tree of DTensors (state over a device
+mesh) is saved as its whole tensors, gathered on every rank; rank 0
+writes and every rank waits at a barrier, so the files are those a
+one-device save of the same state writes.  Restore reads whole tensors;
+the caller places them on its own mesh.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 
 from repro_torch.models.common import (tree_leaves, tree_structure,
                                        tree_unflatten)
@@ -82,11 +89,31 @@ def _save_npy(path: pathlib.Path, leaf) -> None:
         f.write(np.ascontiguousarray(arr).tobytes())
 
 
+def _whole(leaves):
+    """(leaves with each DTensor gathered whole, whether any was one)."""
+    from torch.distributed.tensor import DTensor
+    sharded = any(isinstance(a, DTensor) for a in leaves)
+    return [a.full_tensor() if isinstance(a, DTensor) else a
+            for a in leaves], sharded
+
+
 def save_checkpoint(directory: str, step: int, tree: Any,
                     keep: int = 3) -> str:
     d = pathlib.Path(directory)
+    leaves, sharded = _whole(tree_leaves(tree))
+    final = d / f"step_{step}"
+    if sharded and torch.distributed.get_rank() != 0:
+        torch.distributed.barrier()        # rank 0 writes
+        return str(final)
+    try:
+        return _write(d, step, tree, leaves, keep)
+    finally:
+        if sharded:
+            torch.distributed.barrier()
+
+
+def _write(d: pathlib.Path, step: int, tree, leaves, keep: int) -> str:
     d.mkdir(parents=True, exist_ok=True)
-    leaves = tree_leaves(tree)
     tmp = d / f".tmp_step_{step}"
     if tmp.exists():
         shutil.rmtree(tmp)

@@ -54,3 +54,32 @@ def mesh_shape(mesh) -> MeshShape:
 def mesh_devices(mesh) -> int:
     """The number of devices of ``mesh`` (1 for ``None``)."""
     return 1 if mesh is None else math.prod(mesh_shape(mesh).shape.values())
+
+
+def placements(spec, mesh):
+    """``spec`` as DTensor placements over ``mesh``'s dims: ``Shard(d)``
+    on each mesh dim that dimension ``d`` names, ``Replicate()`` on the
+    others and on axes of extent 1 (a shard of one is the whole tensor).
+
+    Where one dimension names several axes (``("pod", "data")``), the
+    reference shards it major to minor in the order named; DTensor orders
+    the shards of one dimension by mesh-dim order.  Each shard's size and
+    the global tensor are the same either way; which device holds which
+    slice differs when the named order is not the mesh's (``kv_seq_axes``'
+    ``["model", "pod", "data"]``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = mesh_shape(mesh).axis_names
+    dim_of = {}
+    for d, part in enumerate(spec):
+        for a in ((part,) if isinstance(part, str) else (part or ())):
+            if a in dim_of:
+                raise ValueError(f"mesh axis {a!r} named twice in {spec}")
+            dim_of[a] = d
+    unknown = set(dim_of) - set(names)
+    if unknown:
+        raise ValueError(f"{spec} names axes {sorted(unknown)} that the "
+                         f"mesh {names} lacks")
+    sizes = mesh_shape(mesh).shape
+    return tuple(Shard(dim_of[a]) if a in dim_of and sizes[a] > 1
+                 else Replicate() for a in names)
+

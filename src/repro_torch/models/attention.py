@@ -23,6 +23,7 @@ import torch
 
 from .common import PDef, rms_norm, rope, round_to, softcap
 from .config import ModelConfig
+from repro_torch.distributed import ctx
 from repro_torch.distributed.ctx import constrain
 
 NEG_INF = -2.0e38
@@ -64,16 +65,26 @@ def _q_to_kv_map(cfg: ModelConfig) -> np.ndarray:
 
 
 def _expand_kv(cfg: ModelConfig, t):
-    """kv heads of ``t`` [B, T, KV, hd] gathered to the padded q heads."""
+    """kv heads of ``t`` [B, T, KV, hd] gathered to the padded q heads (on
+    a mesh, on each rank's rows with the kv heads whole)."""
     kmap = torch.as_tensor(_q_to_kv_map(cfg), dtype=torch.long,
                            device=t.device)
-    return t.index_select(2, kmap)
+    return ctx.local_op(lambda tt: tt.index_select(2, kmap), t,
+                        work_dims=[(2,)])
+
+
+def _grouped(cfg: ModelConfig, q) -> bool:
+    """The grouped path for ``q`` [B, S, H, hd]: ``_grouped_ok``, and on a
+    mesh each shard of the heads holds whole kv groups (the kv heads
+    divide over the ranks that split the heads); otherwise the kv heads
+    are expanded to the q heads, each rank's own."""
+    return _grouped_ok(cfg) and cfg.n_kv_heads % ctx.dim_extent(q, 2) == 0
 
 
 def _dot_f32(eq: str, a, b):
     """``einsum`` of ``a`` and ``b`` with float32 output, as the
     reference's ``preferred_element_type=float32``."""
-    return torch.einsum(eq, a.float(), b.float())
+    return ctx.einsum(eq, a.float(), b.float())
 
 
 def _einsum_promoted(eq: str, a, b):
@@ -81,7 +92,7 @@ def _einsum_promoted(eq: str, a, b):
     reference's ``jnp.einsum`` of mixed dtypes (a float32 decode over a
     bf16 cache)."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.einsum(eq, a.to(dt), b.to(dt))
+    return ctx.einsum(eq, a.to(dt), b.to(dt))
 
 
 def _scale(cfg: ModelConfig, dtype) -> float:
@@ -89,9 +100,9 @@ def _scale(cfg: ModelConfig, dtype) -> float:
 
 
 def _project_qkv(p, cfg: ModelConfig, x, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = ctx.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = ctx.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = ctx.einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -132,7 +143,7 @@ def _banded_local_attn(qg, k, v, scale: float, window: int, softcap_v):
     mask = (jpos >= 0) & (jpos <= ipos) & (ipos - jpos < W)
     logits = torch.where(mask[None, :, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(qg.dtype)
-    out = torch.einsum("bnKGwu,bnuKh->bnwKGh", probs, vcat)
+    out = ctx.einsum("bnKGwu,bnuKh->bnwKGh", probs, vcat)
     return out.reshape(B, S, KV, G, hd)
 
 
@@ -143,8 +154,9 @@ def attn_fwd(p, cfg: ModelConfig, x, *, local: bool,
     """Full-sequence (train / prefill) attention.  x: [B, S, D]."""
     B, S, _ = x.shape
     if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=x.device).expand(B, S)
+        # one row, broadcast over the batch: the same values as every
+        # row's, and no [B, S] rope tables
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     q, k, v = _project_qkv(p, cfg, x, positions)
     q = constrain(q, "batch", None, "heads", None)
     scale = _scale(cfg, q.dtype)
@@ -154,7 +166,7 @@ def attn_fwd(p, cfg: ModelConfig, x, *, local: bool,
     if banded:
         H, hd = q.shape[2], q.shape[3]
         sc = lambda l: softcap(l, cfg.attn_softcap)
-        if _grouped_ok(cfg):
+        if _grouped(cfg, q):
             KV = cfg.n_kv_heads
             qg = q.reshape(B, S, KV, H // KV, hd)
             out = _banded_local_attn(qg, k, v, scale, cfg.local_window, sc)
@@ -165,7 +177,7 @@ def attn_fwd(p, cfg: ModelConfig, x, *, local: bool,
                                      cfg.local_window, sc)
         out = out.reshape(B, S, H, hd)
         out = constrain(out, "batch", None, "heads", None)
-        y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        y = ctx.einsum("bshk,hkd->bsd", out, p["wo"])
         y = constrain(y, "batch", None, "act_embed")
         if return_cache:
             return y, {"k": k, "v": v}
@@ -177,17 +189,16 @@ def attn_fwd(p, cfg: ModelConfig, x, *, local: bool,
         mask = mask & ((i - j) < cfg.local_window)
     if kv_mask is not None:
         mask = mask & kv_mask[:, None, None, :]
-    if _grouped_ok(cfg):
+    if _grouped(cfg, q):
         # no head padding: grouped einsum, no KV expansion copy
         B, S, H, hd = q.shape
         KV = cfg.n_kv_heads
-        G = H // KV
-        qg = q.reshape(B, S, KV, G, hd)
+        qg = q.reshape(B, S, KV, H // KV, hd)
         logits = _dot_f32("bsKGh,btKh->bKGst", qg * scale, k)
         logits = softcap(logits, cfg.attn_softcap)
         logits = torch.where(mask[:, None], logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.einsum("bKGst,btKh->bsKGh", probs, v).reshape(B, S, H, hd)
+        out = ctx.einsum("bKGst,btKh->bsKGh", probs, v).reshape(B, S, H, hd)
     else:
         ke = constrain(_expand_kv(cfg, k), "batch", None, "heads", None)
         ve = constrain(_expand_kv(cfg, v), "batch", None, "heads", None)
@@ -196,9 +207,9 @@ def attn_fwd(p, cfg: ModelConfig, x, *, local: bool,
         logits = softcap(logits, cfg.attn_softcap)
         logits = torch.where(mask, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.einsum("bhst,bthk->bshk", probs, ve)
+        out = ctx.einsum("bhst,bthk->bshk", probs, ve)
     out = constrain(out, "batch", None, "heads", None)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    y = ctx.einsum("bshk,hkd->bsd", out, p["wo"])
     y = constrain(y, "batch", None, "act_embed")
     if return_cache:
         return y, {"k": k, "v": v}
@@ -236,17 +247,16 @@ def attn_decode(p, cfg: ModelConfig, x, cache, cache_pos, *, local: bool):
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
     k, v = cache["k"], cache["v"]
-    k[:, slot] = k_new[:, 0].to(k.dtype)
-    v[:, slot] = v_new[:, 0].to(v.dtype)
+    ctx.write_seq(k, k_new, slot)
+    ctx.write_seq(v, v_new, slot)
     scale = _scale(cfg, q.dtype)
     # slots written so far: t <= cache_pos covers warm-up; once the rolling
     # buffer has wrapped every slot is valid and in-window by construction.
     mask = torch.arange(L, device=x.device) <= pos
-    if _grouped_ok(cfg):
+    if _grouped(cfg, q):
         B_, S_, H_, hd_ = q.shape
         KV = cfg.n_kv_heads
-        G = H_ // KV
-        qg = q.reshape(B_, S_, KV, G, hd_)
+        qg = q.reshape(B_, S_, KV, H_ // KV, hd_)
         logits = _dot_f32("bsKGh,btKh->bKGst", qg * scale, k)
         logits = softcap(logits, cfg.attn_softcap)
         logits = torch.where(mask, logits, NEG_INF)
@@ -260,7 +270,7 @@ def attn_decode(p, cfg: ModelConfig, x, cache, cache_pos, *, local: bool):
         logits = torch.where(mask, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         out = _einsum_promoted("bhst,bthk->bshk", probs, ve)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    y = ctx.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, {"k": k, "v": v}
 
 
@@ -280,15 +290,15 @@ def cross_attn_pdefs(cfg: ModelConfig) -> dict:
 
 def cross_attn_fwd(p, cfg: ModelConfig, x, enc_kv):
     """x: [B, S, D] queries; enc_kv: dict(k, v) precomputed [B, T, H, hd]."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"]) + p["bq"]
+    q = ctx.einsum("bsd,dhk->bshk", x, p["wq"]) + p["bq"]
     logits = _dot_f32("bshk,bthk->bhst", q * _scale(cfg, q.dtype),
                       enc_kv["k"])
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bhst,bthk->bshk", probs, enc_kv["v"])
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = ctx.einsum("bhst,bthk->bshk", probs, enc_kv["v"])
+    return ctx.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def encode_cross_kv(p, cfg: ModelConfig, enc_out):
-    k = torch.einsum("btd,dhk->bthk", enc_out, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", enc_out, p["wv"]) + p["bv"]
+    k = ctx.einsum("btd,dhk->bthk", enc_out, p["wk"])
+    v = ctx.einsum("btd,dhk->bthk", enc_out, p["wv"]) + p["bv"]
     return {"k": k, "v": v}

@@ -286,8 +286,11 @@ def round_to(value: float, dtype) -> float:
     """``value`` rounded to ``dtype``, as a Python float.  The reference
     multiplies a bf16 array by a Python scalar in bf16 (the scalar is
     weakly typed, so it is rounded to bf16 first); torch keeps the scalar
-    in float32, so the port rounds it itself."""
-    return torch.tensor(value, dtype=dtype).item()
+    in float32, so the port rounds it itself (on a real CPU tensor,
+    unseen by any active dispatch mode: the dry run's counters)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return torch.tensor(value, dtype=dtype, device="cpu").item()
 
 
 def softcap(logits, cap: float):

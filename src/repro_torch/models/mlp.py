@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from .common import PDef, ACT
 from .config import ModelConfig
+from repro_torch.distributed import ctx
 from repro_torch.distributed.ctx import constrain
 
 
@@ -36,10 +37,10 @@ def mlp_pdefs(cfg: ModelConfig, d_ff: int) -> dict:
 
 def mlp_fwd(p, cfg: ModelConfig, x):
     act = ACT[cfg.mlp_act]
-    h = act(torch.einsum("bsd,df->bsf", x, p["w_gate"])) \
-        * torch.einsum("bsd,df->bsf", x, p["w_up"])
+    h = act(ctx.einsum("bsd,df->bsf", x, p["w_gate"])) \
+        * ctx.einsum("bsd,df->bsf", x, p["w_up"])
     h = constrain(h, "batch", None, "mlp")
-    y = torch.einsum("bsf,fd->bsd", h, p["w_down"])
+    y = ctx.einsum("bsf,fd->bsd", h, p["w_down"])
     return constrain(y, "batch", None, "act_embed")
 
 
@@ -67,28 +68,15 @@ def _rank_in_group(keys: torch.Tensor) -> torch.Tensor:
     return idx - run_start
 
 
-def moe_fwd(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output, aux_loss).  x: [B, S, D].
-
-    *Grouped* dispatch: each batch row is an independent routing group,
-    so the sort and the scatters stay within the row.
-    """
-    B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.top_k
-    logits = torch.einsum("bsd,de->bse", x.float(), p["router"].float())
-    probs = torch.softmax(logits, dim=-1)
+def _route(probs, K: int, C: int):
+    """Per batch row (a routing group): the top-``K`` gates, the one-hot
+    of each token's first expert, and the sort of the (token, choice)
+    pairs by expert with each pair's capacity slot (``E * C`` where it
+    overflows).  probs: [B, S, E]."""
+    B, S, E = probs.shape
     gate, eid = torch.topk(probs, K, dim=-1, sorted=True)     # [B, S, K]
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-
-    # load-balancing auxiliary loss (Switch-style)
-    me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(eid[..., 0], E).float().mean(dim=(0, 1))
-    aux = E * (me * ce).sum()
-
-    # ---- permute within each group: sort (B, S·K) by expert --------------
-    # capacity per (group, expert): cf·S·K/E, floored so that single-token
-    # decode groups are dropless (each expert gets ≤ 1 of a token's K).
-    C = min(S * K, max(int(cfg.capacity_factor * S * K / E), 4))
+    onehot = F.one_hot(eid[..., 0], E).float()
     a_exp = eid.reshape(B, S * K).to(torch.int32)
     a_gate = gate.reshape(B, S * K)
     order = torch.argsort(a_exp, dim=-1, stable=True)        # [B, S*K]
@@ -98,30 +86,77 @@ def moe_fwd(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
     rank = _rank_in_group(s_exp)
     fits = rank < C
     slot = torch.where(fits, s_exp * C + rank, E * C).long()  # drop overflow
+    return onehot, slot, s_tok, s_gate, fits
+
+
+def _permute(x, slot, s_tok, E: int, C: int):
+    """Each row's tokens into its [E, C] expert buffer.  x: [B, S, D]."""
+    B, _, D = x.shape
     rows = torch.arange(B, device=x.device)[:, None]
     gathered = x[rows, s_tok]                                # [B,S*K,D]
     # one spare row takes every overflow write and is cut off: the
     # reference's scatter with mode="drop"
     buf = x.new_zeros((B, E * C + 1, D)).index_put(
         (rows.expand_as(slot), slot), gathered)
-    buf = buf[:, :E * C].reshape(B, E, C, D)
-    buf = constrain(buf, "batch", "experts", None, None)
+    return buf[:, :E * C].reshape(B, E, C, D)
 
-    # ---- grouped GEMMs ----------------------------------------------------
-    act = ACT[cfg.mlp_act]
-    h = act(torch.einsum("becd,edf->becf", buf, p["w_gate"])) \
-        * torch.einsum("becd,edf->becf", buf, p["w_up"])
-    h = constrain(h, "batch", "experts", None, None)
-    y = torch.einsum("becf,efd->becd", h, p["w_down"])
-    y = constrain(y, "batch", "experts", None, None).reshape(B, E * C, D)
 
-    # ---- unpermute + combine ---------------------------------------------
-    contrib = y[rows, torch.clamp(slot, max=E * C - 1)] \
+def _combine(x, y, slot, s_tok, s_gate, fits):
+    """Each token's gated expert outputs added back into its row.
+    y: [B, E*C, D]."""
+    B, S, D = x.shape
+    EC = y.shape[1]
+    K = slot.shape[1] // S
+    rows = torch.arange(B, device=x.device)[:, None]
+    contrib = y[rows, torch.clamp(slot, max=EC - 1)] \
         * s_gate[..., None].to(x.dtype)
     contrib = torch.where(fits[..., None], contrib, 0.0)
     out = x.new_zeros((B * S, D)).index_add(
         0, (rows * S + s_tok).reshape(-1), contrib.reshape(B * S * K, D))
-    out = constrain(out.reshape(B, S, D), "batch", None, None)
+    return out.reshape(B, S, D)
+
+
+def moe_fwd(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output, aux_loss).  x: [B, S, D].
+
+    *Grouped* dispatch: each batch row is an independent routing group,
+    so the sort and the scatters stay within the row.  On a mesh the
+    routing, the permute and the combine (sorts, running maxima and
+    scatters, which have no DTensor sharding rule) run on each rank's
+    rows (``ctx.local_op``); the expert GEMMs run on DTensors.
+    """
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    logits = ctx.einsum("bsd,de->bse", x.float(), p["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    # capacity per (group, expert): cf·S·K/E, floored so that single-token
+    # decode groups are dropless (each expert gets ≤ 1 of a token's K).
+    C = min(S * K, max(int(cfg.capacity_factor * S * K / E), 4))
+    onehot, slot, s_tok, s_gate, fits = ctx.local_op(
+        lambda pr: _route(pr, K, C), probs, work_dims=[(1, 2)])
+
+    # load-balancing auxiliary loss (Switch-style)
+    me = probs.mean(dim=(0, 1))
+    ce = onehot.mean(dim=(0, 1))
+    aux = E * (me * ce).sum()
+
+    # ---- permute within each group: sorted by expert ---------------------
+    buf = ctx.local_op(lambda xx, sl, st: _permute(xx, sl, st, E, C),
+                       x, slot, s_tok, work_dims=[(1, 2), (1,), (1,)])
+    buf = constrain(buf, "batch", "experts", None, None)
+
+    # ---- grouped GEMMs ----------------------------------------------------
+    act = ACT[cfg.mlp_act]
+    h = act(ctx.einsum("becd,edf->becf", buf, p["w_gate"])) \
+        * ctx.einsum("becd,edf->becf", buf, p["w_up"])
+    h = constrain(h, "batch", "experts", None, None)
+    y = ctx.einsum("becf,efd->becd", h, p["w_down"])
+    y = constrain(y, "batch", "experts", None, None).reshape(B, E * C, D)
+
+    # ---- unpermute + combine ---------------------------------------------
+    out = ctx.local_op(_combine, x, y, slot, s_tok, s_gate, fits,
+                       work_dims=[(1, 2), (1, 2), (1,), (1,), (1,), (1,)])
+    out = constrain(out, "batch", None, None)
     if cfg.n_shared_experts:
         out = out + mlp_fwd(p["shared"], cfg, x)
     return out, aux

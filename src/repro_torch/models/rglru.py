@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from .common import PDef, affine_scan
 from .config import ModelConfig
+from repro_torch.distributed import ctx
 from repro_torch.distributed.ctx import constrain
 
 _C = 8.0
@@ -46,16 +47,18 @@ def _conv_tail(x, w, tail):
 def rglru_fwd(p, cfg: ModelConfig, x, *, state=None,
               return_state: bool = False):
     """x: [B,S,D].  state: dict(h:[B,r], conv:[B,K-1,r])."""
-    xb = constrain(torch.einsum("bsd,dr->bsr", x, p["w_in"]),
+    xb = constrain(ctx.einsum("bsd,dr->bsr", x, p["w_in"]),
                    "batch", None, "rec")
-    gate = constrain(torch.einsum("bsd,dr->bsr", x, p["w_gate"]),
+    gate = constrain(ctx.einsum("bsd,dr->bsr", x, p["w_gate"]),
                      "batch", None, "rec")
     xc, tail = _conv_tail(xb, p["conv"],
                           state["conv"] if state is not None else None)
-    r = torch.sigmoid(torch.einsum("bsr,rq->bsq", xc, p["w_r"]).float())
-    i = torch.sigmoid(torch.einsum("bsr,rq->bsq", xc, p["w_i"]).float())
+    r = torch.sigmoid(ctx.einsum("bsr,rq->bsq", xc, p["w_r"]).float())
+    i = torch.sigmoid(ctx.einsum("bsr,rq->bsq", xc, p["w_i"]).float())
     # log a_t = c · r_t · log sigmoid(Λ)  (≤ 0)
-    log_a = _C * r * F.logsigmoid(8.0 * p["lam"].float())
+    # logsigmoid has no DTensor rule: elementwise, on each rank's shard
+    log_a = _C * r * ctx.local_op(F.logsigmoid, 8.0 * p["lam"].float(),
+                                  work_dims=[()])
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     v = mult * i * xc.float()
@@ -65,7 +68,7 @@ def rglru_fwd(p, cfg: ModelConfig, x, *, state=None,
                       dim=1)
     _, h = affine_scan(a, v, dim=1)
     y = h.to(x.dtype) * F.gelu(gate, approximate="tanh")
-    out = torch.einsum("bsr,rd->bsd", y, p["w_out"])
+    out = ctx.einsum("bsr,rd->bsd", y, p["w_out"])
     if return_state:
         return out, {"h": h[:, -1, :], "conv": tail}
     return out

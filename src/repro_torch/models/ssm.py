@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from .common import PDef, affine_scan, rms_norm
 from .config import ModelConfig
+from repro_torch.distributed import ctx
 from repro_torch.distributed.ctx import constrain
 
 
@@ -60,7 +61,9 @@ def _ssd_chunked(xh, dt, A, B_, C_, Q: int, h0=None):
     r = lambda t: t.reshape((B, nc, Q) + tuple(t.shape[2:]))
     xc, dtc, Bc, Cc = r(xh), r(dt), r(B_), r(C_)
     a = dtc * A                                  # [B,nc,Q,H] log-decay (<0)
-    cum = torch.cumsum(a, dim=2)
+    # on a mesh, along each rank's chunks (DTensor has no rule for the
+    # flip of cumsum's backward in every torch version)
+    cum = ctx.local_op(lambda t: torch.cumsum(t, dim=2), a, work_dims=[(2,)])
     # intra-chunk: y_i += Σ_{j≤i} exp(cum_i − cum_j)·dt_j·(C_i·B_j)·x_j
     # mask the *exponent* (not the result): exp at masked i<j positions
     # overflows and 0·inf = NaN in the gradient otherwise.
@@ -68,13 +71,13 @@ def _ssd_chunked(xh, dt, A, B_, C_, Q: int, h0=None):
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                 device=xh.device))[None, None, :, :, None]
     decay = torch.exp(torch.where(tri, diff, -torch.inf))
-    scores = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc)
+    scores = ctx.einsum("bcihn,bcjhn->bcijh", Cc, Bc)
     w = scores * decay * dtc[:, :, None, :, :]
     w = constrain(w, "batch", None, None, None, "ssm_heads")
-    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w.to(xh.dtype), xc)
+    y_intra = ctx.einsum("bcijh,bcjhp->bcihp", w.to(xh.dtype), xc)
     # chunk summaries: state_c = Σ_j exp(cum_last − cum_j)·dt_j·B_j ⊗ x_j
     seg = torch.exp(cum[:, :, -1:, :] - cum) * dtc                # [B,nc,Q,H]
-    states = torch.einsum("bcjh,bcjhn,bcjhp->bchnp", seg, Bc,
+    states = ctx.einsum("bcjh,bcjhn,bcjhp->bchnp", seg, Bc,
                           xc.to(seg.dtype))
     chunk_decay = torch.exp(cum[:, :, -1, :])                     # [B,nc,H]
     # inter-chunk recurrence: h_c = chunk_decay_c · h_{c-1} + states_c
@@ -84,7 +87,7 @@ def _ssd_chunked(xh, dt, A, B_, C_, Q: int, h0=None):
     h_prev = torch.cat(
         [h0[:, None] if h0 is not None else torch.zeros_like(sscan[:, :1]),
          sscan[:, :-1]], dim=1)                                   # [B,nc,H,N,P]
-    y_inter = torch.einsum("bcihn,bchnp->bcihp",
+    y_inter = ctx.einsum("bcihn,bchnp->bcihp",
                            (Cc * torch.exp(cum)[..., None]).to(xh.dtype),
                            h_prev.to(xh.dtype))
     y = (y_intra + y_inter).reshape(B, S, H, P)
@@ -98,11 +101,11 @@ def ssm_fwd(p, cfg: ModelConfig, x, *, state=None, return_state: bool = False):
     di = D * cfg.ssm_expand
     H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
     G = cfg.ssm_groups
-    z = torch.einsum("bsd,de->bse", x, p["wz"])
-    xs = torch.einsum("bsd,de->bse", x, p["wx"])
-    Br = torch.einsum("bsd,de->bse", x, p["wB"])
-    Cr = torch.einsum("bsd,de->bse", x, p["wC"])
-    dt_raw = torch.einsum("bsd,dh->bsh", x, p["wdt"])
+    z = ctx.einsum("bsd,de->bse", x, p["wz"])
+    xs = ctx.einsum("bsd,de->bse", x, p["wx"])
+    Br = ctx.einsum("bsd,de->bse", x, p["wB"])
+    Cr = ctx.einsum("bsd,de->bse", x, p["wC"])
+    dt_raw = ctx.einsum("bsd,dh->bsh", x, p["wdt"])
     tails = state["conv"] if state is not None else None
     xs, tail_x = _causal_conv(xs, p["conv_x"], tails["x"] if tails else None)
     Bc, tail_B = _causal_conv(Br, p["conv_B"], tails["B"] if tails else None)
@@ -123,7 +126,7 @@ def ssm_fwd(p, cfg: ModelConfig, x, *, state=None, return_state: bool = False):
     y = y + xh * p["D"][None, None, :, None].to(xh.dtype)
     y = y.reshape(B, S, di)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, p["wo"])
+    out = ctx.einsum("bse,ed->bsd", y, p["wo"])
     if return_state:
         return out, {"h": h_last,
                      "conv": {"x": tail_x, "B": tail_B, "C": tail_C}}

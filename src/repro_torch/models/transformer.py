@@ -16,6 +16,12 @@ Public entry points (functions of (params, inputs)):
 ``prefill`` fills fresh caches; ``decode_step`` writes the new position
 into the attention caches it is given, in place, and returns new
 recurrent states beside them.
+
+With a mesh installed (``distributed.ctx.use``) the same code runs on
+DTensors: each period's (or remainder layer's) weights, the embedding,
+the final norm and the unembedding are gathered at use
+(``ctx.gather``), caches are made and written shard by shard, and the
+gold logit is the reference's iota-mask sum.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from . import attention as attn
 from . import mlp as mlp_mod
 from . import ssm as ssm_mod
 from . import rglru as rglru_mod
+from repro_torch.distributed import ctx
 from repro_torch.distributed.ctx import constrain
 from repro_torch.kernels.runtime import resolve_device
 
@@ -180,24 +187,31 @@ def _block_decode(p, cfg: ModelConfig, kind: str, x, cache, cache_pos):
 # ---------------------------------------------------------------------------
 
 def _embed(params, cfg: ModelConfig, tokens):
-    x = F.embedding(tokens, params["embed"])
+    x = ctx.embed(tokens, ctx.gather(params["embed"]))
     if cfg.emb_scale:
         x = x * round_to(math.sqrt(cfg.d_model), x.dtype)
     return constrain(x, "batch", None, "act_embed")
 
 
 def _logits(params, cfg: ModelConfig, x):
-    x = _apply_norm(params["final_norm"], cfg, x)
+    x = _apply_norm(ctx.gather(params["final_norm"]), cfg, x)
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+        logits = ctx.einsum("bsd,vd->bsv", x, ctx.gather(params["embed"]))
     else:
-        logits = torch.einsum("bsd,dv->bsv", x, params["unembed"])
+        logits = ctx.einsum("bsd,dv->bsv", x,
+                              ctx.gather(params["unembed"]))
     return constrain(logits.float(), "batch", None, "vocab")
 
 
 def _period(tree, c: int):
     """Period ``c``'s slice (views) of a tree stacked on a layers axis."""
     return tree_map(lambda a: a[c], tree)
+
+
+def _block_train_at(p, cfg: ModelConfig, kind: str, x, aux):
+    """``_block_train`` of a remainder layer, its weights gathered at use
+    (inside a recomputed segment, so the backward gathers them again)."""
+    return _block_train(ctx.gather(p), cfg, kind, x, aux)
 
 
 def _run_stack(params, cfg: ModelConfig, x, train: bool):
@@ -208,6 +222,7 @@ def _run_stack(params, cfg: ModelConfig, x, train: bool):
     remat = cfg.remat and train and torch.is_grad_enabled()
 
     def period_fn(xx, aa, pslice):
+        pslice = ctx.gather(pslice)
         for t, kind in enumerate(cfg.pattern):
             xx, aa = _block_train(pslice[f"pos{t}"], cfg, kind, xx, aa)
         return xx, aa
@@ -223,10 +238,10 @@ def _run_stack(params, cfg: ModelConfig, x, train: bool):
     for t in range(rem):
         kind = cfg.layer_kinds[base + t]
         if remat:
-            x, aux = checkpoint(_block_train, params["rem"][t], cfg, kind, x,
-                                aux, use_reentrant=False)
+            x, aux = checkpoint(_block_train_at, params["rem"][t], cfg, kind,
+                                x, aux, use_reentrant=False)
         else:
-            x, aux = _block_train(params["rem"][t], cfg, kind, x, aux)
+            x, aux = _block_train_at(params["rem"][t], cfg, kind, x, aux)
     return x, aux
 
 
@@ -241,13 +256,14 @@ def encode(params, cfg: ModelConfig, enc_frames):
     x = enc_frames + pos[None]
     no_rope = torch.zeros((B, T), dtype=torch.int32, device=x.device)
     for lp in params["enc"]["layers"]:
+        lp = ctx.gather(lp)
         h = _apply_norm(lp["ln1"], cfg, x)
         h = attn.attn_fwd(lp["attn"], cfg, h, local=False, kv_mask=None,
                           positions=no_rope)         # no-rope: pos 0
         x = x + h
         h = _apply_norm(lp["ln2"], cfg, x)
         x = x + mlp_mod.mlp_fwd(lp["mlp"], cfg, h)
-    return _apply_norm(params["enc"]["final_norm"], cfg, x)
+    return _apply_norm(ctx.gather(params["enc"]["final_norm"]), cfg, x)
 
 
 def _inv_freq(d: int, device):
@@ -279,9 +295,9 @@ def fwd_train(params, cfg: ModelConfig, tokens,
         enc_out = encode(params, cfg, enc_frames)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for li in range(cfg.n_layers):
-            x, aux = _block_train(_get_layer(params, cfg, li), cfg,
-                                  cfg.layer_kinds[li], x, aux)
-            cp = params["cross"][li]
+            x, aux = _block_train_at(_get_layer(params, cfg, li), cfg,
+                                     cfg.layer_kinds[li], x, aux)
+            cp = ctx.gather(params["cross"][li])
             x = x + attn.cross_attn_fwd(
                 cp["attn"], cfg, _apply_norm(cp["ln"], cfg, x),
                 attn.encode_cross_kv(cp["attn"], cfg, enc_out))
@@ -305,10 +321,14 @@ def loss_fn(params, cfg: ModelConfig, tokens, targets,
     if cfg.padded_vocab != cfg.vocab:
         iota = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(iota < cfg.vocab, logits, -1e30)
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = ctx.logsumexp(logits)
     # the reference sums an iota mask of the gold column, every other term
-    # an exact zero: the gathered logit, bit for bit
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    # an exact zero: the gathered logit, bit for bit.  On one device the
+    # port gathers it; on a mesh (vocab-sharded logits) it sums the mask
+    if ctx.mesh() is None:
+        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    else:
+        gold = ctx.gold_logit(logits, targets)
     ce = (lse - gold).mean()
     zloss = 1e-4 * lse.square().mean()
     return ce + zloss + cfg.router_aux_weight * aux, (ce, aux)
@@ -333,9 +353,19 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device=None):
-    """Zero decode caches on ``device`` (the GPU when not given)."""
+    """Zero decode caches on ``device`` (the GPU when not given); with a
+    mesh installed, zero DTensors placed by ``cache_pspecs``, each rank's
+    shard made on ``device``."""
     device = resolve_device(device)
     n_periods, rem = _split_layers(cfg)
+    m = ctx.mesh()
+    if m is not None:
+        from repro_torch.distributed.steps import cache_pspecs
+        with ctx.suspended():
+            like = init_caches(cfg, batch, max_len, dtype, "meta")
+        return tree_map(lambda a, spec: ctx.zeros(a.shape, a.dtype, spec, m,
+                                                  device),
+                        like, cache_pspecs(cfg, m, batch, max_len))
     caches: Dict[str, Any] = {}
     if n_periods:
         caches["scan"] = {
@@ -363,8 +393,8 @@ def _cached_stack(params, cfg: ModelConfig, caches, x, step):
         for c in range(n_periods):
             for t, kind in enumerate(cfg.pattern):
                 key = f"pos{t}"
-                x, nc = step(_period(params["scan"][key], c), kind, x,
-                             _period(caches["scan"][key], c))
+                x, nc = step(ctx.gather(_period(params["scan"][key], c)),
+                             kind, x, _period(caches["scan"][key], c))
                 outs[key].append(nc)
         new["scan"] = {
             key: (caches["scan"][key] if kind in ("attn", "local") else
@@ -373,8 +403,8 @@ def _cached_stack(params, cfg: ModelConfig, caches, x, step):
     base = n_periods * len(cfg.pattern)
     new["rem"] = []
     for t in range(rem):
-        x, nc = step(params["rem"][t], cfg.layer_kinds[base + t], x,
-                     caches["rem"][t])
+        x, nc = step(ctx.gather(params["rem"][t]), cfg.layer_kinds[base + t],
+                     x, caches["rem"][t])
         new["rem"].append(nc)
     return x, new
 
@@ -394,11 +424,11 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, cache_pos,
         x = x + _sinusoid_at(int(cache_pos), cfg.d_model, x.dtype, x.device)
         new_rem = []
         for li in range(cfg.n_layers):
-            x, nc = _block_decode(_get_layer(params, cfg, li), cfg,
-                                  cfg.layer_kinds[li], x, caches["rem"][li],
-                                  cache_pos)
+            x, nc = _block_decode(ctx.gather(_get_layer(params, cfg, li)),
+                                  cfg, cfg.layer_kinds[li], x,
+                                  caches["rem"][li], cache_pos)
             # cross attention after self-attn block
-            cp = params["cross"][li]
+            cp = ctx.gather(params["cross"][li])
             x = x + attn.cross_attn_fwd(
                 cp["attn"], cfg, _apply_norm(cp["ln"], cfg, x),
                 attn.encode_cross_kv(cp["attn"], cfg, enc_out))
@@ -413,8 +443,8 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, cache_pos,
 
 def _fill_kv(cache, kv, S: int):
     """Write a prefill's k/v [B, S, ...] at the start of ``cache``."""
-    cache["k"][:, :S] = kv["k"]
-    cache["v"][:, :S] = kv["v"]
+    ctx.write_seq(cache["k"], kv["k"], 0)
+    ctx.write_seq(cache["v"], kv["v"], 0)
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_len: int,
@@ -434,13 +464,13 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int,
         x = x + _sinusoid(S, cfg.d_model, x.dtype, x.device)[None]
         enc_out = encode(params, cfg, enc_frames)
         for li in range(cfg.n_layers):
-            p = params["rem"][li]
+            p = ctx.gather(params["rem"][li])
             h = _apply_norm(p["ln1"], cfg, x)
             h, kv = attn.attn_fwd(p["mixer"], cfg, h, local=False,
                                   return_cache=True)
             _fill_kv(caches["rem"][li], kv, S)
             x = x + h
-            cp = params["cross"][li]
+            cp = ctx.gather(params["cross"][li])
             x = x + attn.cross_attn_fwd(
                 cp["attn"], cfg, _apply_norm(cp["ln"], cfg, x),
                 attn.encode_cross_kv(cp["attn"], cfg, enc_out))
@@ -458,8 +488,10 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int,
             if kind == "local" and cfg.local_window and S > L:
                 # keep the last window, aligned to position mod window
                 shift = S % L
-                cache["k"].copy_(torch.roll(kv["k"][:, -L:], shift, 1))
-                cache["v"].copy_(torch.roll(kv["v"][:, -L:], shift, 1))
+                ctx.write_seq(cache["k"], torch.roll(kv["k"][:, -L:], shift, 1),
+                              0)
+                ctx.write_seq(cache["v"], torch.roll(kv["v"][:, -L:], shift, 1),
+                              0)
             else:
                 _fill_kv(cache, kv, S)
         elif kind == "ssm":

@@ -1,4 +1,4 @@
-"""Fault-tolerant training loop on one device.
+"""Fault-tolerant training loop, on one device or over a device mesh.
 
 Responsibilities:
   * build the train step (``distributed.steps.make_train_step``),
@@ -8,8 +8,10 @@ Responsibilities:
     the last published checkpoint and replays identically
     (``tests/test_torch_trainer.py`` holds the replay bit for bit).
 
-Checkpoints hold ``(params, opt, step)`` as full tensors; restore puts
-them on the trainer's device.
+Checkpoints hold ``(params, opt, step)`` as full tensors, whatever mesh
+wrote them: restore puts them on the trainer's device and, over a
+``DeviceMesh``, places them by ``train_state_specs`` for that mesh
+(elastic restart = restart with another mesh).
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.configs.shapes import ShapeCell
 from repro_torch.data.tokens import SyntheticTokens
-from repro_torch.distributed.steps import make_train_step
+from repro_torch.distributed.steps import (_on_mesh, make_train_step,
+                                           shard_state, train_state_specs)
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import init_params, tree_map
@@ -43,8 +46,10 @@ class TrainConfig:
 
 class Trainer:
     """``param_dtype`` is the parameters' dtype (the AdamW moments are
-    float32 whatever it is); ``device`` the device the state lives on,
-    the GPU unless given."""
+    float32 whatever it is); ``device`` the device the state lives on
+    (this rank's, over a mesh), the GPU unless given.  Over a
+    ``DeviceMesh`` every rank builds the same Trainer; the state is DTensors
+    placed by ``train_state_specs``."""
 
     def __init__(self, model_cfg, mesh, cell: ShapeCell, tcfg: TrainConfig,
                  param_dtype=torch.float32, device=None):
@@ -56,6 +61,8 @@ class Trainer:
         self.device = resolve_device(device)
         self.step_fn = make_train_step(model_cfg, mesh, cell, lr=tcfg.lr,
                                        grad_accum=tcfg.grad_accum)
+        self._specs = (train_state_specs(model_cfg, mesh)
+                       if _on_mesh(mesh, "Trainer") else None)
         self.data = SyntheticTokens(model_cfg.vocab, cell.seq_len,
                                     cell.global_batch, seed=tcfg.seed)
         self.params = None
@@ -73,14 +80,23 @@ class Trainer:
                 tf.pdefs(self.cfg))
             (params, opt, step), _ = restore_checkpoint(
                 self.tcfg.ckpt_dir, (like, adamw_init(like), 0))
-            self.params, self.opt, self.step = params, opt, int(step)
+            self._place(params, opt)
+            self.step = int(step)
             return True
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-        self.params = init_params(tf.pdefs(self.cfg), gen, self.param_dtype,
-                                  self.device)
-        self.opt = adamw_init(self.params)
+        params = init_params(tf.pdefs(self.cfg), gen, self.param_dtype,
+                             self.device)
+        self._place(params, adamw_init(params))
         self.step = 0
         return False
+
+    def _place(self, params, opt) -> None:
+        """Whole state (the same on every rank) as the trainer keeps it:
+        as is on one device, placed by the specs over a mesh."""
+        if self._specs is not None:
+            params = shard_state(params, self._specs[0], self.mesh)
+            opt = shard_state(opt, self._specs[1], self.mesh)
+        self.params, self.opt = params, opt
 
     def _host_batch(self, step: int):
         tokens, targets = self.data.batch_at(step)

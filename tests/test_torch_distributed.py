@@ -242,17 +242,34 @@ def test_data_and_output_specs_match_reference():
                     tuple(rsteps._data_pspec(mesh, batch, extra))
 
 
-def test_step_builders_refuse_meshes_of_several_devices():
-    """No silent single-device run over a mesh of 256 devices: item 8d."""
+def test_step_builders_take_meshes_of_several_ranks():
+    """The builders take a ``DeviceMesh`` of several ranks (here over a
+    fake group of four: built, not run) and refuse a stand-in of several
+    devices (no silent one-device run); ``make_host_mesh`` and
+    ``make_production_mesh`` refuse a group of the wrong size."""
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import (init_fake_group, make_host_mesh,
+                                         make_production_mesh)
     cfg = get_config("qwen3-14b")
-    for mesh in (MESHES["16x16"], FakeDeviceMesh({"data": 4, "model": 1})):
-        for build in (lambda m: make_train_step(cfg, m, SHAPES["train_4k"]),
-                      lambda m: make_prefill(cfg, m, SHAPES["prefill_32k"]),
-                      lambda m: make_decode_step(cfg, m,
-                                                 SHAPES["decode_32k"])):
-            with pytest.raises(NotImplementedError, match="8d"):
+    builders = (lambda m: make_train_step(cfg, m, SHAPES["train_4k"]),
+                lambda m: make_prefill(cfg, m, SHAPES["prefill_32k"]),
+                lambda m: make_decode_step(cfg, m, SHAPES["decode_32k"]))
+    for mesh in (MESHES["16x16"], MESHES["2x16x16"]):
+        for build in builders:
+            with pytest.raises(TypeError, match="DeviceMesh"):
                 build(mesh)
     one = FakeMesh({"data": 1, "model": 1})
     assert callable(make_train_step(cfg, one, SHAPES["train_4k"]))
-    assert callable(make_train_step(cfg, FakeDeviceMesh({"data": 1}),
-                                    SHAPES["train_4k"]))
+    init_fake_group(4)
+    try:
+        for data, model in ((2, 2), (4, 1), (1, 4)):
+            mesh = make_host_mesh(data, model, device="cpu")
+            for build in builders:
+                assert callable(build(mesh))
+        with pytest.raises(ValueError, match="needs 8 ranks"):
+            make_host_mesh(4, 2, device="cpu")
+        for multi_pod in (False, True):
+            with pytest.raises(ValueError, match="the process group has 4"):
+                make_production_mesh(multi_pod=multi_pod, device="cpu")
+    finally:
+        tdist.destroy_process_group()
