@@ -42,19 +42,21 @@ to a plain version while a GPU is present):
            admission.  Then one
            1-lane and one 8-lane preconditioner apply of the handle's
            factor against the full-row composition the sweeps replaced
-           (ell_spmv_fleet over the whole panel, then where(level == lv),
-           each row's level from the factor's packed schedules built anew)
-           on the same input: bitwise equal, both times printed.  The
+           (ell_spmv_fleet over each row's live slots, the fleet's flen /
+           blen, then where(level == lv), each row's level from the
+           factor's packed schedules built anew) on the same input:
+           bitwise equal, both times printed.  The
            full-row kernel's launches over these two applies are its
            comparison_launches in the kernel table; its launches in that
            row are [main]'s, 0: its own path is [zoo], whose rows carry
            [zoo]'s launches.
   spmv     ell_spmv_fleet kernel vs its plain version at the main path's
-           shapes (its forward panels, 1 and 8 lanes): relative error
-           <= 1e-5, and a lane alone bitwise equal to the same lane inside
-           the 8-lane batch.  ell_sweep_fleet vs its plain version at the
-           largest and at an average forward level (8 lanes): relative
-           error <= 1e-5.
+           shapes (its forward panels over flen, 1 and 8 lanes, x
+           gathered through L1): relative error <= 1e-5, bitwise equal to
+           the kernel over all K slots, and a lane alone bitwise equal to
+           the same lane inside the 8-lane batch.  ell_sweep_fleet vs its
+           plain version at the largest and at an average forward level
+           (8 lanes): relative error <= 1e-5.
   library  the library path through the user entry points, launch counts
            reset just before and read just after: factorize_wavefront of
            the main path's graph with its settings and key (bit-identical to
@@ -222,16 +224,23 @@ to a plain version while a GPU is present):
            sample_clique_round (the AC factors) and nothing else.  Then,
            outside the counts, one ichol apply against both solves through
            ell_sweep_fleet_plain (relative error <= 1e-5), and the
-           full-row kernel on each spmv panel with 8 seeded lanes against
-           ell_spmv_fleet_plain: each side, at every (lane, row), within
-           its own summation order's standard forward-error bound of the
-           exact float64 row sum (spmv.ell_spmv_fleet_error_bounds: the
-           kernel gamma_m sum_k |v x| with m = ceil(K/G) + log2 G, G the
-           row's thread group; the plain version gamma_K; the worst
-           ratios printed), each lane alone bitwise equal to its lane of
-           the batch.  [timing] then times the full-row kernel on the amg
+           full-row kernel on each spmv panel over its live slots (flen)
+           with 8 seeded lanes against ell_spmv_fleet_plain: each side, at
+           every (lane, row), within its own summation order's standard
+           forward-error bound of the exact float64 row sum
+           (spmv.ell_spmv_fleet_error_bounds: the kernel gamma_m sum_k
+           |v x| with m = ceil(K/G) + log2 G, G the row's thread group;
+           the plain version gamma_K; the worst ratios printed), bitwise
+           equal to the kernel over all K slots and to the kernel with x
+           gathered through L1 instead of staged in shared memory, each
+           lane alone bitwise equal to its lane of the batch; and the amg
+           and spai panels of grid3d_uniform_16 stacked under 8
+           interleaved lanes (fidx 0, 1, 0, 1, ...): each lane bitwise
+           equal to the lane alone and to its lane of its factor's 8-lane
+           launch.  [timing] then times the full-row kernel on the amg
            panel of grid3d_uniform_16 and the spai panel of powerlaw_4k
-           (8 lanes), beside its plain version, torch.sparse.mm on the
+           (8 lanes over flen; 1 lane and the gathers through L1
+           printed), beside its plain version, torch.sparse.mm on the
            panel's live slots in CSR (within gamma_K sum_k |v x| of the
            exact row sums, a bound for any order) and the bound of the
            live slots.
@@ -376,8 +385,8 @@ two for each level sweep — ell_sweep_fleet, ell_sweep and
 ell_sweep_multi: the largest forward level, then an average one —,
 two for flash_attention — the qwen3-14b shape, then the
 recurrentgemma-2b one — and three for the full-row ell_spmv_fleet: [main]'s
-forward panel with [main]'s launches (0) and comparison launches, then
-[zoo]'s amg and spai panels, each with [zoo]'s launch count), the card's
+forward panel over flen with [main]'s launches (0) and comparison launches,
+then [zoo]'s amg and spai panels, each with [zoo]'s launch count), the card's
 name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -1003,9 +1012,9 @@ def phase_main(dev, g):
 
 def full_row_apply(h, levels, fidx, R):
     """One preconditioner apply through the full-row composition that the
-    level sweeps replaced: per level ell_spmv_fleet over the whole padded
-    panel, then where(level_of == lv, y - Y, y).  ``levels`` is the
-    handle's (forward, backward) level per row."""
+    level sweeps replaced: per level ell_spmv_fleet over every row's live
+    slots (the fleet's flen / blen), then where(level_of == lv, y - Y, y).
+    ``levels`` is the handle's (forward, backward) level per row."""
     from repro_torch.kernels import ops
     fl = h.fleet
     fa = fl.arrays
@@ -1014,11 +1023,11 @@ def full_row_apply(h, levels, fidx, R):
     Y = ops.trisolve_fleet_masked(fa.fcols, fa.fvals, fidx,
                                   levels[0].expand(L, -1), R,
                                   n_levels=fl.f_levels,
-                                  lane_levels=fa.fnlv[f])
+                                  lane_levels=fa.fnlv[f], lens=fa.flen)
     return ops.trisolve_fleet_masked(fa.bcols, fa.bvals, fidx,
                                      levels[1].expand(L, -1),
                                      Y * fa.dinv[f], n_levels=fl.b_levels,
-                                     lane_levels=fa.bnlv[f])
+                                     lane_levels=fa.bnlv[f], lens=fa.blen)
 
 
 def apply_against_full_row(dev, h):
@@ -1074,20 +1083,28 @@ def phase_spmv(dev, h):
     fidx8 = torch.full((8,), h.fleet_row, dtype=torch.int32, device=dev)
     worst = 0.0
     for L in (1, 8):
-        y = spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx8[:L], X[:L])
-        p = spmv.ell_spmv_fleet_plain(fa.fcols, fa.fvals, fidx8[:L], X[:L])
+        y = spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx8[:L], X[:L],
+                                fa.flen)
+        p = spmv.ell_spmv_fleet_plain(fa.fcols, fa.fvals, fidx8[:L], X[:L],
+                                      fa.flen)
+        y_all = spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx8[:L], X[:L])
         torch.cuda.synchronize()
         err = float((y - p).abs().max())
         rel = err / max(float(p.abs().max()), 1e-30)
         check(rel <= 1e-5, f"ell_spmv_fleet L={L}: relative error {rel:.2e}")
+        check(bitwise_equal(y, y_all),
+              f"ell_spmv_fleet L={L}: the live slots (flen) differ from "
+              f"all K slots")
         worst = max(worst, err)
         log(f"[spmv] L={L} R={n_pad} K={fa.fcols.shape[2]}: max abs err "
-            f"{err:.3e} (relative {rel:.2e})")
-    y1 = spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx8[:1], X[:1].clone())
-    y8 = spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx8, X)
+            f"{err:.3e} (relative {rel:.2e}); over flen == over all K, bit "
+            f"for bit")
+    y1 = spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx8[:1], X[:1].clone(),
+                             fa.flen)
+    y8 = spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx8, X, fa.flen)
     for lane in range(8):
         yl = spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx8[:1],
-                                 X[lane:lane + 1].contiguous())
+                                 X[lane:lane + 1].contiguous(), fa.flen)
         check(bitwise_equal(yl[0], y8[lane]),
               f"ell_spmv_fleet: lane {lane} alone differs from the same "
               f"lane in the 8-lane batch")
@@ -2529,8 +2546,17 @@ def phase_zoo(dev, g64, card):
         X = torch.zeros((8, h.n_pad), device=dev)
         X[:, :h.n] = torch.randn((8, h.n), generator=gen, device=dev)
         fidx = torch.full((8,), h.fleet_row, dtype=torch.int32, device=dev)
-        y = spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X)
-        p = spmv.ell_spmv_fleet_plain(fa.fcols, fa.fvals, fidx, X)
+        y = spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X, fa.flen)
+        p = spmv.ell_spmv_fleet_plain(fa.fcols, fa.fvals, fidx, X, fa.flen)
+        # all K slots, and x gathered through L1 instead of shared memory
+        for other, what in (
+                (spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X),
+                 "all K slots"),
+                (spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X, fa.flen,
+                                     x_smem=False), "x through L1")):
+            check(bitwise_equal(y, other),
+                  f"zoo {fam} {name}: the full-row kernel over flen with x "
+                  f"in shared memory differs from {what}")
         err = (y.double() - p.double()).abs()
         exact, kernel_bound, plain_bound = spmv.ell_spmv_fleet_error_bounds(
             fa.fcols, fa.fvals, fidx, X)
@@ -2545,27 +2571,70 @@ def phase_zoo(dev, g64, card):
               f"times its forward-error bound")
         for lane in range(8):
             alone = spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx[:1],
-                                        X[lane:lane + 1].contiguous())
+                                        X[lane:lane + 1].contiguous(),
+                                        fa.flen)
             check(bitwise_equal(alone[0], y[lane]),
                   f"zoo {fam} {name}: lane {lane} alone differs from the "
                   f"same lane in the 8-lane batch")
         errs[name, fam] = float(err.max())
         rel = errs[name, fam] / max(float(p.abs().max()), 1e-30)
         log(f"[zoo] {fam} {name} full-row ell_spmv_fleet L=8 R={h.n_pad} "
-            f"K={h.fleet.Kf}: max abs err {errs[name, fam]:.3e} (relative "
+            f"K={h.fleet.Kf} over flen ({int(fa.flen[h.fleet_row].sum())} "
+            f"live slots): max abs err {errs[name, fam]:.3e} (relative "
             f"{rel:.2e}); against the exact float64 row sums, worst ratio "
             f"to its own order's forward-error bound: kernel {ratio:.3e}, "
-            f"plain {plain_ratio:.3e}; each lane alone == its lane of the "
-            f"batch, bit for bit")
+            f"plain {plain_ratio:.3e}; == all K slots and == x through L1, "
+            f"each lane alone == its lane of the batch, bit for bit")
+    mixed_factor_lanes(dev, [spmv_handles["grid3d_uniform_16", fam]
+                             for fam in ("amg", "spai")], gen)
     log(f"[zoo] phase passed in {time.time() - t_phase:.1f}s; {card}")
     return dict(launches=launches, handles=spmv_handles, errs=errs)
+
+
+def mixed_factor_lanes(dev, handles, gen):
+    """Two spmv panels stacked (the amg and spai rows of grid3d_uniform_16,
+    zero-padded to one K) under 8 lanes interleaved, fidx = [0, 1, 0, 1,
+    ...]: one launch, and each lane bitwise equal to that lane launched
+    alone and to its lane of its factor's 8-lane launch."""
+    import torch
+    from repro_torch.kernels import spmv
+    K = max(h.fleet.arrays.fcols.shape[2] for h in handles)
+    n_pad = handles[0].n_pad
+    rows = [(h.fleet.arrays, h.fleet_row) for h in handles]
+    pad = [(0, K - fa.fcols.shape[2]) for fa, _ in rows]
+    cols = torch.stack([torch.nn.functional.pad(fa.fcols[r], p)
+                        for (fa, r), p in zip(rows, pad)])
+    vals = torch.stack([torch.nn.functional.pad(fa.fvals[r], p)
+                        for (fa, r), p in zip(rows, pad)])
+    lens = torch.stack([fa.flen[r] for fa, r in rows])
+    X = torch.zeros((8, n_pad), device=dev)
+    X[:, :handles[0].n] = torch.randn((8, handles[0].n), generator=gen,
+                                      device=dev)
+    fidx = torch.tensor([0, 1] * 4, dtype=torch.int32, device=dev)
+    y = spmv.ell_spmv_fleet(cols, vals, fidx, X, lens)
+    per_factor = [spmv.ell_spmv_fleet(cols, vals, torch.full_like(fidx, f),
+                                      X, lens) for f in (0, 1)]
+    for lane in range(8):
+        f = lane % 2
+        alone = spmv.ell_spmv_fleet(cols, vals, fidx[lane:lane + 1],
+                                    X[lane:lane + 1].contiguous(), lens)
+        check(bitwise_equal(alone[0], y[lane])
+              and bitwise_equal(per_factor[f][lane], y[lane]),
+              f"zoo: lane {lane} of the interleaved two-factor launch "
+              f"differs from the lane alone or from its factor's 8-lane "
+              f"launch")
+    log(f"[zoo] amg and spai panels stacked (K={K}), 8 lanes interleaved: "
+        f"each lane == the lane alone == its lane of its factor's 8-lane "
+        f"launch, bit for bit")
 
 
 def zoo_timing(dev, zoo):
     """The [timing] rows of the full-row ell_spmv_fleet at the shapes the
     [zoo] path gives it: the amg panel of grid3d_uniform_16 and the spai
-    panel of powerlaw_4k, 8 lanes each, against the plain version and
-    torch.sparse.mm on the same rows in CSR (live slots only)."""
+    panel of powerlaw_4k, over each row's live slots (flen), 8 lanes each,
+    against the plain version and torch.sparse.mm on the same rows in CSR
+    (live slots only).  Also printed: the same at 1 lane, the wrapper's
+    host time per call, and 8 lanes with x gathered through L1."""
     import torch
     from repro_torch.kernels import spmv
     rows = []
@@ -2577,11 +2646,17 @@ def zoo_timing(dev, zoo):
         X = torch.zeros((L, n_pad), device=dev)
         X[:, :h.n] = torch.randn((L, h.n), device=dev)
         fidx = torch.full((L,), h.fleet_row, dtype=torch.int32, device=dev)
-        ms = time_ms(lambda: spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X))
-        device_ms = device_ms_per_launch(
-            lambda: spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X))
+
+        def kernel(lanes=L, **kw):
+            return spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx[:lanes],
+                                       X[:lanes], fa.flen, **kw)
+        ms = time_ms(kernel)
+        device_ms = device_ms_per_launch(kernel)
+        busy, events = device_busy_ms(lambda: [kernel() for _ in range(20)])
+        log(f"[timing] ell_spmv_fleet {key[1]} panel L=8: one trace of 20 "
+            f"calls held {events} device events, {busy} ms busy")
         plain_ms = time_ms(lambda: spmv.ell_spmv_fleet_plain(
-            fa.fcols, fa.fvals, fidx, X), reps=2)
+            fa.fcols, fa.fvals, fidx, X, fa.flen), reps=2)
         c = fa.fcols[h.fleet_row].reshape(-1)
         v = fa.fvals[h.fleet_row].reshape(-1)
         # a row's kept entries are its first slots, all nonzero: row-major
@@ -2596,7 +2671,6 @@ def zoo_timing(dev, zoo):
                                           check_invariants=False)
         XT = X.T.contiguous()
         y_lib = torch.sparse.mm(csr, XT).T
-        y_k = spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X)
         torch.cuda.synchronize()
         # cuSPARSE's summation order and product roundings are not known:
         # the plain version's bound (K roundings a term) covers any order
@@ -2610,6 +2684,16 @@ def zoo_timing(dev, zoo):
         nnz = int(live.sum())
         x_bytes = L * gathered_bytes(c, v, 1)
         nbytes = nnz * 8 + x_bytes + L * 4 + L * n_pad * 4
+        # one lane (x_bytes of one lane), the wrapper's host time, and the
+        # gathers through L1
+        one = bound(nnz * 8 + x_bytes // L + 4 + n_pad * 4, 2 * nnz)
+        log(f"[timing] ell_spmv_fleet {key[1]} panel L=1: kernel "
+            f"{time_ms(lambda: kernel(1)):.4f} ms (device time "
+            f"{device_ms_per_launch(lambda: kernel(1))} ms per launch), "
+            f"bound {one['bound_ms']:.5f} ms; L=8 device time {device_ms} "
+            f"ms; wrapper host time {host_ms_per_call(kernel):.4f} ms a "
+            f"call; L=8 with x through L1: device time "
+            f"{device_ms_per_launch(lambda: kernel(x_smem=False))} ms")
         rows.append(dict(
             name="ell_spmv_fleet", route="cuda",
             source="src/repro_torch/csrc/ell_spmv_fleet.cu",
@@ -2623,6 +2707,20 @@ def zoo_timing(dev, zoo):
             device_ms=device_ms))
     log_rows(rows)
     return rows
+
+
+def host_ms_per_call(fn, reps: int = 20) -> float:
+    """Host wall time per call of ``fn``, ``reps`` calls enqueued without
+    a sync (the card's queue takes them), after a warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
 
 
 DIST_SILENT = ("sample_clique", "ell_spmv_fleet", "ell_sweep_fleet",
@@ -4105,19 +4203,26 @@ def phase_mesh(dev, card):
 
 
 def device_ms_per_launch(fn, n: int = 20, tries: int = 3):
-    """Device time of one call of ``fn`` (one kernel launch): the busy
-    time of ``n`` back-to-back calls in one trace over ``n``, so the host's
-    work between launches is not counted.  A trace that comes back with no
-    device event is taken again, up to ``tries`` traces; None when none
-    holds one."""
+    """Device time of one call of ``fn`` (one or more kernel launches):
+    the busy time of ``n`` back-to-back calls in one trace over ``n``, so
+    the host's work between launches is not counted.  A trace of one call
+    first counts its device events; a trace of the ``n`` calls that holds
+    fewer than ``n`` times as many has lost some, and its busy time reads
+    short: it is taken again, up to ``tries`` traces; None when none holds
+    them all."""
     fn()
+    _, per_call = device_busy_ms(fn)
+    want = n * max(per_call, 1)
     for attempt in range(tries):
-        busy, _ = device_busy_ms(lambda: [fn() for _ in range(n)])
-        if busy is not None:
+        busy, events = device_busy_ms(lambda: [fn() for _ in range(n)])
+        if busy is not None and events >= want:
             if attempt:
                 log(f"[timing] device time read from trace {attempt + 1}: "
-                    f"the earlier traces held no device event")
+                    f"the earlier traces held fewer than {want} device "
+                    f"events")
             return busy / n
+        log(f"[timing] a trace of {n} calls held {events} of {want} device "
+            f"events ({busy} ms busy); taken again")
     return None
 
 
@@ -4213,22 +4318,33 @@ def phase_timing(dev, main, spmv_errs):
     L = 8
     X = torch.randn((L, n_pad), device=dev)
     fidx = torch.full((L,), h.fleet_row, dtype=torch.int32, device=dev)
-    ms = time_ms(lambda: spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X))
-    device_ms = device_ms_per_launch(
-        lambda: spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X))
+
+    def full_row():
+        return spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X, fa.flen)
+    ms = time_ms(full_row)
+    device_ms = device_ms_per_launch(full_row)
     plain_ms = time_ms(lambda: spmv.ell_spmv_fleet_plain(
-        fa.fcols, fa.fvals, fidx, X), reps=3)
-    # the library yardstick: the same matrix in CSR, torch.sparse.mm
-    c = fa.fcols[h.fleet_row].reshape(-1).long()
-    v = fa.fvals[h.fleet_row].reshape(-1)
-    crow = torch.arange(0, n_pad * K + 1, K, device=dev)
+        fa.fcols, fa.fvals, fidx, X, fa.flen), reps=3)
+    one_lane = device_ms_per_launch(lambda: spmv.ell_spmv_fleet(
+        fa.fcols, fa.fvals, fidx[:1], X[:1], fa.flen))
+    log(f"[timing] ell_spmv_fleet [main] panel L=1: device time {one_lane} "
+        f"ms per launch; L=8 wrapper host time "
+        f"{host_ms_per_call(full_row):.4f} ms a call")
+    # the library yardstick: the same rows' live slots in CSR,
+    # torch.sparse.mm
+    lens = fa.flen[h.fleet_row]
+    live = torch.arange(K, device=dev)[None, :] < lens[:, None]
+    c = fa.fcols[h.fleet_row][live].long()
+    v = fa.fvals[h.fleet_row][live]
+    crow = torch.zeros(n_pad + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(lens.long(), 0)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         csr = torch.sparse_csr_tensor(crow, c, v, size=(n_pad, n_pad),
                                       check_invariants=False)
     XT = X.T.contiguous()
     y_lib = torch.sparse.mm(csr, XT).T
-    y_k = spmv.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, X)
+    y_k = full_row()
     torch.cuda.synchronize()
     lib_rel = float((y_lib - y_k).abs().max()) / max(
         float(y_k.abs().max()), 1e-30)

@@ -161,10 +161,11 @@ def fleet_precondition(fa: FleetArrays, fidx: torch.Tensor, R: torch.Tensor,
       AC and the incomplete-Cholesky families.
     * ``"spmv"`` — ``M r``: one full-row ``ell_spmv_fleet`` launch over
       the materialized approximate inverse in the forward-panel slots
-      (``fcols``/``fvals``); the backward panels and ``dinv`` are inert.
-      The SPAI and flattened-AMG families."""
+      (``fcols``/``fvals``, each row's live slots ``flen``); the backward
+      panels and ``dinv`` are inert.  The SPAI and flattened-AMG
+      families."""
     if kind == "spmv":
-        return ops.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, R)
+        return ops.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, R, lens=fa.flen)
     if kind != "factor":
         raise ValueError(f"unknown preconditioner apply kind: {kind!r}")
     f = fidx.long()

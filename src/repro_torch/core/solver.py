@@ -182,6 +182,14 @@ def _max_rows(a: List[int], b: List[int]) -> List[int]:
     return [max(x, y) for x, y in zip(a, b)]
 
 
+def _live_lengths(vals: np.ndarray) -> np.ndarray:
+    """Each row's live slots in a left-packed ELL panel ``[n, K]``: the
+    index of its last nonzero value plus one (0 for a row of zeros)."""
+    nz = vals != 0
+    return np.where(nz.any(axis=1), vals.shape[1] - np.argmax(
+        nz[:, ::-1], axis=1), 0).astype(np.int32)
+
+
 class _PaddedFactor:
     """One preconditioner's bucket-padded device arrays, ready for fleet
     admission: Laplacian adjacency rows, forward/backward
@@ -213,15 +221,18 @@ class _PaddedFactor:
         """The fleet-admissible view of a materialized approximate inverse
         on ``device``: its ELL rows become a 1-level forward panel whose
         padding rows and slots hold zero values, so they add exactly zero
-        to the lane-batched SpMV.  Every true row's live length is the
-        panel width K (the full-row apply reads all of it)."""
+        to the lane-batched SpMV.  Each true row's live length is the index
+        of its last nonzero value plus one (the rows are left-packed, so
+        the full-row apply reads only those slots; a kept zero past the
+        last nonzero adds nothing), a padding row's 0."""
         n_pad = max(_next_pow2(g.n), 1)
         cols = _grow(torch.as_tensor(op.cols, dtype=torch.int32,
                                      device=device), (n_pad, op.K))
         vals = _grow(torch.as_tensor(op.vals, device=device), (n_pad, op.K))
         zeros_n = torch.zeros((n_pad,), dtype=torch.int32, device=device)
         row_len = zeros_n.clone()
-        row_len[:g.n] = op.K
+        live = _live_lengths(np.asarray(op.vals))
+        row_len[:g.n] = torch.from_numpy(live).to(device)
         fwd = PackedSchedule(n=g.n, n_pad=n_pad, n_levels=1, K=op.K,
                              cols=cols, vals=vals, level_of=zeros_n,
                              row_len=row_len)

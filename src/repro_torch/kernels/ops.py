@@ -55,11 +55,13 @@ def ell_spmv_multi(cols, vals, x) -> torch.Tensor:
     return _spmv.ell_spmv_multi(cols, vals, x)
 
 
-def ell_spmv_fleet(cols, vals, fidx, x) -> torch.Tensor:
+def ell_spmv_fleet(cols, vals, fidx, x, lens=None) -> torch.Tensor:
     """Lane-batched ELL SpMV ``[L, R]``: lane ``l`` multiplies ``x[l]`` by
     the panel ``fidx[l]`` of the fleet stack ``cols``/``vals``
-    ``[F, R, K]`` (a per-lane stack passes ``fidx = arange(L)``)."""
-    return _spmv.ell_spmv_fleet(cols, vals, fidx.to(torch.int32), x)
+    ``[F, R, K]`` (a per-lane stack passes ``fidx = arange(L)``), over
+    each row's ``lens`` ``[F, R]`` live slots when given (the slots past
+    them hold 0.0: the same bits as all K)."""
+    return _spmv.ell_spmv_fleet(cols, vals, fidx.to(torch.int32), x, lens)
 
 
 def trisolve_fleet(cols, vals, lens, rows, starts, fidx, y, *,
@@ -91,20 +93,22 @@ def trisolve_fleet(cols, vals, lens, rows, starts, fidx, y, *,
 
 
 def trisolve_fleet_masked(cols, vals, fidx, level_of, y, *, n_levels: int,
-                          lane_levels: Optional[torch.Tensor] = None
+                          lane_levels: Optional[torch.Tensor] = None,
+                          lens: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """The full-row form of :func:`trisolve_fleet`: each level runs the
     full-row fleet SpMV and commits the rows at that level,
     ``y = where(level_of == lv, y - A y, y)`` for ``lv = 1 .. bound-1``
     (``level_of`` ``[L, n]``; ``n_levels`` the static ceiling,
-    ``lane_levels`` lowering it as there).  Every level reads the whole
-    padded panel; kept as the composition the level sweep is held
-    against."""
+    ``lane_levels`` lowering it as there).  Every level reads every row:
+    its live slots when ``lens`` (the stack's live slots per row) is
+    given, else the whole padded panel; kept as the composition the level
+    sweep is held against."""
     bound = n_levels
     if lane_levels is not None:
         bound = min(int(lane_levels.max()), n_levels)
     for lv in range(1, bound):
-        contrib = ell_spmv_fleet(cols, vals, fidx, y)
+        contrib = ell_spmv_fleet(cols, vals, fidx, y, lens)
         y = torch.where(level_of == lv, y - contrib, y)
     return y
 

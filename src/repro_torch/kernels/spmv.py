@@ -3,12 +3,15 @@ versions.  A CPU tensor takes the plain version, a CUDA tensor the kernel
 (or an error); nothing falls back.
 
 * ``ell_spmv_fleet`` — lane-batched over a fleet stack:
-  ``Y[l, i] = Σ_k vals[f, i, k] · x[l, cols[f, i, k]]`` with
-  ``f = fidx[l]``: cols/vals are the stacked panels ``[F, R, K]`` and each
-  lane reads its own factor's panel through ``fidx``.  Replaces the TPU
-  kernel ``ell_spmv_fleet_pallas`` (``repro/kernels/spmv.py``), which took
-  per-lane panels ``[L, R, K]`` — the ``fidx = arange(L)`` case.  Source:
-  ``csrc/ell_spmv_fleet.cu``.
+  ``Y[l, i] = Σ_{k < lens[f, i]} vals[f, i, k] · x[l, cols[f, i, k]]``
+  with ``f = fidx[l]``: cols/vals are the stacked panels ``[F, R, K]``
+  and each lane reads its own factor's panel through ``fidx``; ``lens``
+  (optional) holds each row's live slots, all K without it.  Replaces
+  the TPU kernel ``ell_spmv_fleet_pallas`` (``repro/kernels/spmv.py``),
+  which took per-lane panels ``[L, R, K]`` — the ``fidx = arange(L)``,
+  ``lens = None`` case.  Source: ``csrc/ell_spmv_fleet.cu``: each block
+  groups the lanes by factor and reads a row's live slots once for up to
+  8 lanes of its factor.
 * ``ell_sweep_fleet`` — the fleet's triangular-solve sweeps over level
   rows, in place: for each level ``lv``, ``y[l, i] -= Σ_{k < len[f, i]}
   vals[f, i, k] · y[l, cols[f, i, k]]`` for the rows ``i`` of level
@@ -94,13 +97,25 @@ def _row_sums_np(cols, vals, x) -> np.ndarray:
 ell_spmv_multi_plain = ell_spmv_plain
 
 
-def ell_spmv_fleet_plain(cols, vals, fidx, x) -> torch.Tensor:
+def ell_spmv_fleet_plain(cols, vals, fidx, x, lens=None) -> torch.Tensor:
     """The plain version of ``ell_spmv_fleet``: lane by lane, the plain
-    single-vector SpMV of the lane's panel."""
+    single-vector SpMV of the lane's panel, over each row's first
+    ``lens[f, i]`` slots when ``lens`` is given (a slot past a row's
+    length counts as 0.0, and the panel is cut at the factor's longest
+    row).  On a left-packed panel, whose slots past a row's length hold
+    0.0, the sum equals the sum over all K slots bit for bit: adding the
+    exact product 0.0 to a float64 partial sum and rounding to float32
+    changes nothing (a partial sum of -0 aside)."""
     y = torch.empty((x.shape[0], cols.shape[1]), dtype=x.dtype,
                     device=x.device)
     for lane, f in enumerate(fidx.tolist()):
-        y[lane] = ell_spmv_plain(cols[f], vals[f], x[lane])
+        c, v = cols[f], vals[f]
+        if lens is not None:
+            ln = lens[f].long()
+            k = min(max(int(ln.max()), 0), c.shape[1]) if ln.numel() else 0
+            live = torch.arange(k, device=ln.device)[None, :] < ln[:, None]
+            c, v = c[:, :k], torch.where(live, v[:, :k], 0.0)
+        y[lane] = ell_spmv_plain(c, v, x[lane])
     return y
 
 
@@ -200,22 +215,66 @@ def _check_sweep_shapes(cols, vals, lens, rows, starts, fidx, y,
                          "fidx [L] must agree")
 
 
+# the C entry points, resolved and typed once each
+_LAUNCHERS: dict = {}
+
+
 def _launcher(name: str, n_ptr: int, n_int: int, entry: str = ""):
     """The C entry ``<entry or name>_launch`` of ``csrc/<name>.cu``:
     ``n_ptr`` pointers, ``n_int`` ints and the stream; returns a
-    cudaError_t."""
-    f = getattr(runtime.load(name), f"{entry or name}_launch")
-    f.restype = ctypes.c_int
-    f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                  + [ctypes.c_void_p])
+    cudaError_t.  Resolved (and its ``argtypes`` set) on first use, then
+    taken from a cache."""
+    key = (name, entry, n_ptr, n_int)
+    f = _LAUNCHERS.get(key)
+    if f is None:
+        f = getattr(runtime.load(name), f"{entry or name}_launch")
+        f.restype = ctypes.c_int
+        f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                      + [ctypes.c_void_p])
+        _LAUNCHERS[key] = f
     return f
 
 
-def ell_spmv_fleet(cols, vals, fidx, x) -> torch.Tensor:
+# the most lanes one ell_spmv_fleet launch takes (kMaxLanes of
+# csrc/ell_spmv_fleet.cu: each block keeps the lanes' factor table in
+# shared memory)
+FLEET_MAX_LANES = 1024
+# the shared memory the kernel stages a pass's x in (kXSmemBytes): a pass
+# of nb lanes (the next power of two above L, at most 8) at width n fits
+# when nb * round4(n) * 4 bytes do
+FLEET_X_SMEM_BYTES = 136 * 1024
+
+
+def _fleet_gather(L: int, n: int, x_smem):
+    """(gather code, interleaved x width) of an ``ell_spmv_fleet`` launch,
+    as the C entry decides them: x staged in shared memory (1) when a pass
+    takes 2 or more lanes and they fit, or when asked for, else gathered
+    through L1 (0) from x with its lanes interleaved ``[n][ld]`` (ld 0: no
+    copy, one lane reads x)."""
+    nb = 8 if L > 4 else 4 if L > 2 else L         # lanes a pass
+    fits = nb * ((n + 3) // 4 * 4) * 4 <= FLEET_X_SMEM_BYTES
+    if x_smem and not fits:
+        raise ValueError(f"ell_spmv_fleet: x of {nb} lanes at n = {n} does "
+                         f"not fit in shared memory")
+    if ((nb >= 2 and fits) if x_smem is None else x_smem):
+        return 1, 0
+    return 0, (0 if L == 1 else nb if L <= 8 else (L + 7) // 8 * 8)
+
+
+def ell_spmv_fleet(cols, vals, fidx, x, lens=None, *,
+                   x_smem=None) -> torch.Tensor:
     """cols int32 / vals float32 ``[F, R, K]``, fidx int32 ``[L]`` (rows
-    of the stack, each < F), x float32 ``[L, n]`` → ``[L, R]``."""
+    of the stack, each < F), x float32 ``[L, n]`` → ``[L, R]``.  ``lens``
+    int32 ``[F, R]``: each row's live slots (≤ K; the slots past it must
+    hold 0.0 and are not read); ``None`` reads all K.  On the card at most
+    :data:`FLEET_MAX_LANES` lanes a launch.  ``x_smem`` picks the
+    kernel's gather of x: ``None`` stages it in shared memory when a pass
+    takes 2 or more lanes and they fit (8 lanes at n ≤ 4,096), else
+    gathers it through L1 (several lanes from a copy with the lanes
+    interleaved); ``True`` / ``False`` force either way (for comparing
+    the two; ``True`` raises where it does not fit)."""
     if x.device.type == "cpu":
-        return ell_spmv_fleet_plain(cols, vals, fidx, x)
+        return ell_spmv_fleet_plain(cols, vals, fidx, x, lens)
     if x.device.type != "cuda":
         raise ValueError(f"ell_spmv_fleet: unsupported device {x.device}")
     dev = x.device
@@ -228,10 +287,21 @@ def ell_spmv_fleet(cols, vals, fidx, x) -> torch.Tensor:
     if vals.shape != cols.shape or fidx.shape != (L,):
         raise ValueError("ell_spmv_fleet: cols/vals must match [F, R, K] "
                          "and fidx must be [L]")
+    if lens is not None:
+        runtime.require(lens, "lens", torch.int32, 2, dev)
+        if lens.shape != (F, R):
+            raise ValueError("ell_spmv_fleet: lens must be [F, R]")
+    if L > FLEET_MAX_LANES:
+        raise ValueError(f"ell_spmv_fleet: {L} lanes; one launch takes at "
+                         f"most {FLEET_MAX_LANES}")
+    gather, ld = _fleet_gather(L, n, x_smem)
     y = torch.empty((L, R), dtype=torch.float32, device=dev)
-    err = _launcher("ell_spmv_fleet", 5, 4)(
-        cols.data_ptr(), vals.data_ptr(), fidx.data_ptr(), x.data_ptr(),
-        y.data_ptr(), L, R, K, n, runtime.stream_ptr(x))
+    xt = torch.empty(n * ld, dtype=torch.float32, device=dev) if ld else None
+    err = _launcher("ell_spmv_fleet", 7, 5)(
+        cols.data_ptr(), vals.data_ptr(),
+        None if lens is None else lens.data_ptr(), fidx.data_ptr(),
+        x.data_ptr(), None if xt is None else xt.data_ptr(), y.data_ptr(),
+        L, R, K, n, gather, runtime.stream_ptr(x))
     runtime.check_launch("ell_spmv_fleet", err)
     runtime.count_launch("ell_spmv_fleet")
     return y

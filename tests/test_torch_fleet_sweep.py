@@ -138,6 +138,27 @@ def test_sweep_equals_full_row_composition(fleet, half):
 
 
 @pytest.mark.parametrize("half", [0, 1], ids=["fwd", "bwd"])
+def test_full_row_composition_over_live_slots(fleet, half):
+    """The full-row composition reading each row's live slots (the
+    stack's flen / blen, as chip_smoke.py's [main] runs it) equals the
+    sweep and the composition over all K slots bit for bit."""
+    fl, hs, levels = fleet
+    _, cols, vals, level, lens, rows, starts = _halves(fl.arrays, levels)[half]
+    level_rows = fl.f_rows if half == 0 else fl.b_rows
+    fidx, y = _lanes(fl, hs, FIDX, seed=10 + half)
+    got = ops.trisolve_fleet_masked(cols, vals, fidx, level[fidx.long()], y,
+                                    n_levels=len(level_rows), lens=lens)
+    full = ops.trisolve_fleet_masked(cols, vals, fidx, level[fidx.long()],
+                                     y, n_levels=len(level_rows))
+    sweep = ops.trisolve_fleet(cols, vals, lens, rows, starts, fidx, y,
+                               level_rows=level_rows)
+    assert torch.equal(_bits(got), _bits(full))
+    assert torch.equal(_bits(got), _bits(sweep))
+    # the panel has padding for the live lengths to skip
+    assert int(lens.long().sum()) < lens.numel() * cols.shape[2]
+
+
+@pytest.mark.parametrize("half", [0, 1], ids=["fwd", "bwd"])
 def test_plain_sweep_on_tensors_equals_numpy_route(fleet, half):
     """The plain sweep's level loop on tensors with the torch row sums
     (its route on the card) equals its CPU route on numpy views, bit for

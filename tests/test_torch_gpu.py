@@ -142,6 +142,69 @@ def test_ell_spmv_fleet_kernel(dev):
     assert torch.equal(y0[0], y[0])
 
 
+@pytest.mark.parametrize("K", [5, 33, 1086])
+@pytest.mark.parametrize("L", [1, 3, 8, 11])
+def test_ell_spmv_fleet_kernel_live_slots_bitwise(dev, K, L):
+    """The full-row kernel over each row's live slots on left-packed
+    panels of two factors (rows of length 0, 1 and K; the lanes
+    interleaved): equal bit for bit to the kernel over all K slots, to
+    each lane alone, to the factor's lanes launched together, and between
+    x staged in shared memory and gathered through L1; the kernel and the
+    plain version each within its own order's forward-error bound of the
+    exact row sums; one launch a call."""
+    rng = np.random.default_rng(10 * K + L)
+    F, R, n = 2, 700, 2048
+    lens = rng.integers(0, K + 1, (F, R)).astype(np.int32)
+    lens[:, :3] = [0, 1, K]
+    live = np.arange(K)[None, None, :] < lens[:, :, None]
+    cols = np.where(live, rng.integers(0, n, (F, R, K)), 0).astype(np.int32)
+    vals = np.where(live, rng.normal(size=(F, R, K)), 0.0).astype(np.float32)
+    x = rng.normal(size=(L, n)).astype(np.float32)
+    fidx = (np.arange(L) % 2).astype(np.int32)
+    cols, vals, lens, x, fidx = (torch.from_numpy(a).to(dev)
+                                 for a in (cols, vals, lens, x, fidx))
+    before = runtime.LAUNCHES.get("ell_spmv_fleet", 0)
+    y = spmv.ell_spmv_fleet(cols, vals, fidx, x, lens)
+    assert runtime.LAUNCHES["ell_spmv_fleet"] == before + 1
+    full = spmv.ell_spmv_fleet(cols, vals, fidx, x)
+    assert torch.equal(y.view(torch.int32), full.view(torch.int32))
+    for smem in (True, False):
+        other = spmv.ell_spmv_fleet(cols, vals, fidx, x, lens, x_smem=smem)
+        assert torch.equal(other.view(torch.int32), y.view(torch.int32))
+    p = spmv.ell_spmv_fleet_plain(cols, vals, fidx, x, lens)
+    exact, kernel_bound, plain_bound = spmv.ell_spmv_fleet_error_bounds(
+        cols, vals, fidx, x)
+    assert bool(((y.double() - exact).abs() <= kernel_bound).all())
+    assert bool(((p.double() - exact).abs() <= plain_bound).all())
+    for lane in range(L):
+        alone = spmv.ell_spmv_fleet(cols, vals, fidx[lane:lane + 1],
+                                    x[lane:lane + 1].contiguous(), lens)
+        assert torch.equal(alone[0].view(torch.int32),
+                           y[lane].view(torch.int32))
+    same = torch.nonzero(fidx == 0)[:, 0]
+    for smem in (None, False):       # through L1: the lanes' vector reads
+        together = spmv.ell_spmv_fleet(cols, vals, fidx[same].contiguous(),
+                                       x[same].contiguous(), lens,
+                                       x_smem=smem)
+        assert torch.equal(together.view(torch.int32),
+                           y[same].view(torch.int32))
+
+
+def test_ell_spmv_fleet_lane_limit(dev):
+    """One launch takes at most FLEET_MAX_LANES lanes; above it the
+    wrapper raises before any launch."""
+    L = spmv.FLEET_MAX_LANES + 1
+    cols = torch.zeros((1, 4, 3), dtype=torch.int32, device=dev)
+    x = torch.zeros((L, 4), device=dev)
+    fidx = torch.zeros(L, dtype=torch.int32, device=dev)
+    before = runtime.LAUNCHES.get("ell_spmv_fleet", 0)
+    with pytest.raises(ValueError):
+        spmv.ell_spmv_fleet(cols, cols.float(), fidx, x)
+    assert runtime.LAUNCHES.get("ell_spmv_fleet", 0) == before
+    y = spmv.ell_spmv_fleet(cols, cols.float(), fidx[:-1], x[:-1])
+    assert bool((y == 0).all())
+
+
 def _sweep_fleet(dev):
     """A three-factor fleet of one bucket on the card (the CPU file
     test_torch_fleet_sweep.py builds the same one), its handles, and each

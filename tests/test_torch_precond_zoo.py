@@ -258,6 +258,34 @@ def test_apply_matches_reference(reference, port_zoo, name, fam):
     assert runtime.LAUNCHES.get("ell_spmv_fleet", 0) == before
 
 
+@pytest.mark.parametrize("fam", ["amg", "spai"])
+@pytest.mark.parametrize("name", list(PARITY))
+def test_spmv_fleet_row_lengths(port_zoo, name, fam):
+    """An spmv family's fleet row keeps each row's live slots: the index
+    of its last nonzero value plus one (0 on padding rows, never above
+    K), read from the payload here; the apply over them equals the apply
+    over all K slots bit for bit."""
+    from repro_torch.kernels import spmv
+    h = port_zoo[name, fam]
+    fa = h.fleet.arrays
+    vals = np.asarray(h.factor.vals)
+    want = np.zeros(h.n_pad, np.int32)
+    for i, row in enumerate(vals):
+        nz = np.flatnonzero(row)
+        want[i] = nz[-1] + 1 if nz.size else 0
+    flen = fa.flen[h.fleet_row].numpy()
+    assert np.array_equal(flen, want)
+    assert flen.max() <= h.factor.K <= fa.fcols.shape[2]
+    rng = np.random.default_rng(3)
+    X = torch.zeros((2, h.n_pad))
+    X[:, :h.n] = torch.from_numpy(rng.normal(size=(2, h.n)).astype(
+        np.float32))
+    fidx = torch.full((2,), h.fleet_row, dtype=torch.int32)
+    full = spmv.ell_spmv_fleet_plain(fa.fcols, fa.fvals, fidx, X)
+    live = spmv.ell_spmv_fleet_plain(fa.fcols, fa.fvals, fidx, X, fa.flen)
+    assert torch.equal(live.view(torch.int32), full.view(torch.int32))
+
+
 @pytest.mark.parametrize("fam", HOST_FAMILIES)
 @pytest.mark.parametrize("name", list(PARITY))
 def test_solve_matches_reference(reference, port_zoo, name, fam):

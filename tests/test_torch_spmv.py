@@ -1,7 +1,9 @@
-"""Port parity of the single- and multi-vector ELL SpMV against the
-reference's Pallas kernels, run in interpret mode as the reference's own
-tests run them on a CPU, and the plain multi-vector SpMV's columns bit for
-bit equal to the plain single-vector SpMV.
+"""Port parity of the single- and multi-vector ELL SpMV, and of the fleet
+SpMV over each row's live slots, against the reference's Pallas kernels,
+run in interpret mode as the reference's own tests run them on a CPU; the
+plain multi-vector SpMV's columns bit for bit equal to the plain
+single-vector SpMV, and the plain fleet SpMV over live slots bit for bit
+equal to the same over all K.
 
 Tolerance: XLA:CPU sums a short row left to right by fused multiply-adds,
 as the plain versions do, so up to K = 16 the results must be equal bit
@@ -19,6 +21,7 @@ torch.set_num_threads(1)
 import jax.numpy as jnp                                        # noqa: E402
 
 from repro.kernels import ops as jops                          # noqa: E402
+from repro.kernels.spmv import ell_spmv_fleet_pallas           # noqa: E402
 from repro_torch.kernels import ops as tops                    # noqa: E402
 from repro_torch.kernels import spmv as tspmv                  # noqa: E402
 
@@ -142,3 +145,56 @@ def test_plain_fleet_within_its_forward_error_bound(K):
          enumerate(fidx.tolist())])
     dropped = exact - t.gather(2, t.abs().argmax(2, keepdim=True))[..., 0]
     assert bool(((dropped - exact).abs() > kernel_bound).all())
+
+
+def _left_packed_fleet(K, seed, F=2, R=48, n=300):
+    """Two factors' left-packed panels ``[F, R, K]``: row ``i`` holds
+    ``lens[f, i]`` live slots (rows of length 0, 1 and K among them), the
+    rest col 0 and value 0.0, as the fleet stores an spmv family's rows."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, K + 1, (F, R)).astype(np.int32)
+    lens[:, :3] = [0, 1, K]
+    live = np.arange(K)[None, None, :] < lens[:, :, None]
+    cols = np.where(live, rng.integers(0, n, (F, R, K)), 0).astype(np.int32)
+    vals = np.where(live, rng.normal(size=(F, R, K)), 0.0).astype(np.float32)
+    return cols, vals, lens, rng
+
+
+@pytest.mark.parametrize("K", [5, 33, 1086])
+def test_plain_fleet_with_lens_equals_all_slots(K):
+    """The plain fleet SpMV over each row's live slots equals the same
+    over all K slots bit for bit on left-packed, zero-padded panels of two
+    factors with interleaved lanes."""
+    cols, vals, lens, rng = _left_packed_fleet(K, K)
+    x = rng.normal(size=(6, 300)).astype(np.float32)
+    fidx = torch.tensor([0, 1, 0, 1, 0, 1], dtype=torch.int32)
+    c, v, ln, xt = (torch.from_numpy(a) for a in (cols, vals, lens, x))
+    full = tspmv.ell_spmv_fleet_plain(c, v, fidx, xt)
+    live = tspmv.ell_spmv_fleet_plain(c, v, fidx, xt, ln)
+    assert torch.equal(live.view(torch.int32), full.view(torch.int32))
+    # the wrapper takes the plain version on CPU tensors, lens and all
+    assert torch.equal(tops.ell_spmv_fleet(c, v, fidx, xt, ln), live)
+    # slots past a row's length are not read, whatever they hold
+    junk = v.clone()
+    junk[~(torch.arange(K)[None, None, :] < ln[:, :, None].long())] = 7.0
+    assert torch.equal(tspmv.ell_spmv_fleet_plain(c, junk, fidx, xt, ln),
+                       live)
+
+
+@pytest.mark.parametrize("K", [5, 33, 1086])
+def test_plain_fleet_with_lens_vs_pallas_interpret(K):
+    """The plain fleet SpMV over live slots against the reference's
+    ``ell_spmv_fleet_pallas`` (interpret mode) on the lanes' gathered
+    panels, within this file's tolerance."""
+    cols, vals, lens, rng = _left_packed_fleet(K, 10 + K)
+    fidx = np.array([1, 0, 1, 0], np.int32)
+    x = rng.normal(size=(4, 300)).astype(np.float32)
+    want = np.asarray(ell_spmv_fleet_pallas(
+        jnp.asarray(cols[fidx]), jnp.asarray(vals[fidx]), jnp.asarray(x),
+        interpret=True))
+    got = tspmv.ell_spmv_fleet_plain(
+        torch.from_numpy(cols), torch.from_numpy(vals),
+        torch.from_numpy(fidx), torch.from_numpy(x),
+        torch.from_numpy(lens)).numpy()
+    for lane, f in enumerate(fidx):
+        _assert_parity(got[lane], want[lane], cols[f], vals[f], x[lane])
