@@ -56,7 +56,9 @@ to a plain version while a GPU is present):
            the kernel over all K slots, and a lane alone bitwise equal to
            the same lane inside the 8-lane batch.  ell_sweep_fleet vs its
            plain version at the largest and at an average forward level
-           (8 lanes): relative error <= 1e-5.
+           (8 lanes, y interleaved as the apply keeps it): relative error
+           <= 1e-5, bitwise equal to the same level on lane-major y, and
+           lanes 0 and 5 alone bitwise equal to their lanes of the 8.
   library  the library path through the user entry points, launch counts
            reset just before and read just after: factorize_wavefront of
            the main path's graph with its settings and key (bit-identical to
@@ -111,7 +113,10 @@ to a plain version while a GPU is present):
            forward slab for ell_spmv and ell_spmv_multi, the two bf16
            model shapes for flash_attention, whose library call is
            scaled_dot_product_attention; ell_sweep_fleet at the main
-           factor's largest and at an average forward level, 8 lanes;
+           factor's largest and at an average forward level, 8 lanes on
+           interleaved y, with its group width G and the level kernel's
+           device time beside the call's (which also holds the solve's
+           lane grouping);
            ell_sweep and ell_sweep_multi, 8 columns, at the library
            path's largest and an average forward level, against
            torch.sparse.mm on that level's live slots in CSR),
@@ -124,7 +129,8 @@ to a plain version while a GPU is present):
            launches, beside its CUDA-event mean (which also holds the
            wrapper's host work when that outlasts the kernel); and one
            preconditioner apply of each path on the same factor, with its
-           device busy time from a torch.profiler trace of one apply.
+           device busy time from a torch.profiler trace of one apply, its
+           launches and its sweeps' C calls (2 an apply on either path).
            sample_clique at the rows of the 64^3 final attempt's middle
            round (R = 256, W = 512) and sample_clique_round on the same
            round (the state restored before each call, outside the timed
@@ -155,7 +161,10 @@ to a plain version while a GPU is present):
            no other kernel.  Printed: ticks, tick wall (median, max),
            requests/s and column-iterations/s, latency p50/p99 and queue
            wait p50, and the device busy share of one full tick (8 lanes)
-           from a torch.profiler trace.
+           from a torch.profiler trace.  Last, one apply of 8 lanes of the
+           two factors interleaved in fidx ([a, b, a, b, b, a, a, b]): each
+           lane bitwise equal to its right-hand side applied alone by its
+           handle and to the full-row composition.
   cluster  the solve cluster through its entry points, after the earlier
            phases' device state is released ([main]'s host factor kept):
            SolveCluster with 2 solve replicas and 1 factor-tier replica,
@@ -1055,8 +1064,9 @@ def apply_against_full_row(dev, h):
     runtime.reset_launches()
     for L, R, fidx in runs:
         t0 = time.time()
-        new = fleet_precondition(fl.arrays, fidx, R, f_rows=fl.f_rows,
-                                 b_rows=fl.b_rows)
+        f_plan, b_plan = h.plans()
+        new = fleet_precondition(fl.arrays, fidx, R, f_plan=f_plan,
+                                 b_plan=b_plan)
         torch.cuda.synchronize()
         t_new = time.time() - t0
         t0 = time.time()
@@ -1075,7 +1085,7 @@ def apply_against_full_row(dev, h):
 
 def phase_spmv(dev, h):
     import torch
-    from repro_torch.kernels import spmv
+    from repro_torch.kernels import ops, spmv
     fa = h.fleet.arrays
     n_pad = h.n_pad
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1114,17 +1124,31 @@ def phase_spmv(dev, h):
     sweep_worst = 0.0
     for tag, lv in sweep_levels(h).items():
         sw = sweep_call(h, lv, X)
-        Yk, Yp = X.clone(), X.clone()
+        Yk, Yp = ops.interleaved(X), X.clone()
         sw(spmv.ell_sweep_fleet, Yk)
         sw(spmv.ell_sweep_fleet_plain, Yp)
+        Ylm = X.clone()
+        sw(spmv.ell_sweep_fleet, Ylm)
         torch.cuda.synchronize()
         err = float((Yk - Yp).abs().max())
         rel = err / max(float(Yp.abs().max()), 1e-30)
         check(rel <= 1e-5, f"ell_sweep_fleet {tag} level {lv}: relative "
                            f"error {rel:.2e}")
+        check(bitwise_equal(Yk, Ylm), f"ell_sweep_fleet {tag} level {lv}: "
+                                      f"interleaved y differs from "
+                                      f"lane-major")
+        for lane in (0, 5):
+            one = X[lane:lane + 1].clone()
+            sweep_call(h, lv, one)(spmv.ell_sweep_fleet, one)
+            check(bitwise_equal(one[0], Yk[lane]),
+                  f"ell_sweep_fleet {tag} level {lv}: lane {lane} alone "
+                  f"differs from the same lane of 8")
         sweep_worst = max(sweep_worst, err)
-        log(f"[spmv] ell_sweep_fleet L=8 {tag} forward level {lv}: max abs "
-            f"err {err:.3e} (relative {rel:.2e}) vs its plain version")
+        k = int(level_entry(h, lv)[0, 2])
+        log(f"[spmv] ell_sweep_fleet L=8 {tag} forward level {lv} (level_k "
+            f"{k}, G {spmv.group_width(k)}): max abs err {err:.3e} "
+            f"(relative {rel:.2e}) vs its plain version; interleaved == "
+            f"lane-major and each lane alone == its lane of 8, bit for bit")
     return dict(full_row=worst, sweep=sweep_worst)
 
 
@@ -1139,14 +1163,22 @@ def sweep_levels(h):
     return {"largest": largest, "average": average}
 
 
+def level_entry(h, lv: int):
+    """The forward plan's entry of level ``lv`` alone (one launch):
+    (level, row count bound, longest live row)."""
+    plan = h.fleet.f_plan
+    only = plan[plan[:, 0] == lv]
+    check(only.shape[0] == 1, f"level {lv} is not in the forward plan")
+    return only
+
+
 def sweep_call(h, lv, Y):
     """fn(kernel_or_plain, y): one forward level ``lv`` of the handle's
-    factor, in place on ``y`` ``[L, n_pad]`` (every lane the handle's)."""
+    factor, in place on ``y`` ``[L, n_pad]`` (every lane the handle's;
+    lane-major or interleaved)."""
     import torch
-    fl = h.fleet
-    fa = fl.arrays
-    only = [0] * fl.f_levels
-    only[lv] = fl.f_rows[lv]
+    fa = h.fleet.arrays
+    only = level_entry(h, lv)
     fidx = torch.full((Y.shape[0],), h.fleet_row, dtype=torch.int32,
                       device=Y.device)
     return lambda fn, y: fn(fa.fcols, fa.fvals, fa.flen, fa.frows, fa.fstart,
@@ -1319,8 +1351,9 @@ def level_plan(sched, lv: int):
 
 def fleet_lane_of_level(sched, lv, y):
     """Level ``lv`` swept by ell_sweep_fleet, one lane, on a row-indexed
-    copy of the level's slab at the panel's full width (G =
-    group_width(K)): returns the swept copy of ``y``."""
+    copy of the level's slab at the panel's full width: returns the swept
+    copy of ``y``."""
+    import numpy as np
     import torch
     from repro_torch.kernels import spmv
     dev = y.device
@@ -1332,8 +1365,7 @@ def fleet_lane_of_level(sched, lv, y):
     cols[0, rows], vals[0, rows] = sched.cols[lo:hi], sched.vals[lo:hi]
     lens[0, rows] = sched.row_len[lo:hi]
     starts = torch.as_tensor(sched.row_ptr.astype("int32"), device=dev)[None]
-    only = [0] * sched.n_levels
-    only[lv] = hi - lo
+    only = np.array([[lv, hi - lo, sched.level_k[lv]]], np.int32)
     out = y[None].clone()
     spmv.ell_sweep_fleet(cols, vals, lens, sched.row_ids[None].contiguous(),
                          starts, torch.zeros(1, dtype=torch.int32, device=dev),
@@ -1754,11 +1786,18 @@ def sweep_rows_timing(dev, slabs, lib):
 def apply_timing(dev, main, slabs):
     """One preconditioner apply of each path on the same factor, 1 and 8
     right-hand sides: the main path's fleet level sweeps and the library
-    path's level-slab sweeps."""
+    path's level-slab sweeps; for each, the C calls of its sweeps (one per
+    triangular solve) beside its launches, and the group width the main
+    path's sweep takes at the two timed forward levels."""
     import torch
     from repro_torch.core.trisolve import make_preconditioner_from_schedules
-    from repro_torch.kernels import runtime
+    from repro_torch.kernels import runtime, spmv
     h = main["handle"]
+    for tag, lv in sweep_levels(h).items():
+        k = int(level_entry(h, lv)[0, 2])
+        log(f"[timing] ell_sweep_fleet at the {tag} forward level {lv}: "
+            f"level_k {k}, G {spmv.group_width(k)} (the panel's K "
+            f"{h.fleet.Kf} would give {spmv.group_width(h.fleet.Kf)})")
     apply = make_preconditioner_from_schedules(slabs["fwd"], slabs["bwd"],
                                                h.factor.device.D)
     n = h.n
@@ -1772,18 +1811,51 @@ def apply_timing(dev, main, slabs):
             ("library 8 rhs", lambda: apply(R8), 5)):
         ms = time_ms(fn, reps=reps)
         runtime.reset_launches()
-        fn()
+        with SweepCalls() as calls:
+            fn()
         torch.cuda.synchronize()
         launches = dict(runtime.LAUNCHES)
         busy, n_dev = device_busy_ms(fn)
-        out[tag] = dict(ms=ms, busy_ms=busy)
+        out[tag] = dict(ms=ms, busy_ms=busy, c_calls=calls.n)
         idle = ("device time not measured (the trace holds no device event)"
                 if busy is None else
                 f"device busy {busy:.2f} ms in {n_dev} device events, idle "
                 f"share {1 - busy / ms:.3f} of the unprofiled mean")
         log(f"[timing] preconditioner apply, {tag}: {ms:.2f} ms, launches "
-            f"{launches}; {idle}")
+            f"{launches}, sweep C calls {calls.n}; {idle}")
+        if tag.startswith("main"):
+            check(calls.n == 2, f"{tag}: the apply made {calls.n} "
+                                f"ell_sweep_fleet calls, not 2")
     return out
+
+
+class SweepCalls:
+    """While the ``with`` block runs, counts the calls of the level
+    sweeps' wrappers (``ell_sweep_fleet``, ``ell_sweep``,
+    ``ell_sweep_multi``): each is one C call, one triangular solve."""
+
+    NAMES = ("ell_sweep_fleet", "ell_sweep", "ell_sweep_multi")
+
+    def __init__(self):
+        self.n = 0
+
+    def __enter__(self):
+        from repro_torch.kernels import spmv
+        self._orig = {name: getattr(spmv, name) for name in self.NAMES}
+
+        def counted(orig):
+            def call(*args, **kw):
+                self.n += 1
+                return orig(*args, **kw)
+            return call
+        for name, orig in self._orig.items():
+            setattr(spmv, name, counted(orig))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import spmv
+        for name, orig in self._orig.items():
+            setattr(spmv, name, orig)
 
 
 # kernels that must not launch while the [serve] phase serves: only the
@@ -1981,6 +2053,8 @@ def phase_serve(dev, main, card):
         f"{percentile(flat, 50):.3f}s p99 {percentile(flat, 99):.3f}s, "
         f"queue wait p50 "
         f"{percentile([r.queue_wait_s for r in served], 50):.3f}s; {card}")
+    if shared:
+        two_factor_apply(dev, h0, h1, card)
     wall, busy, events = full_tick_busy(dev, solver, gids, g.n)
     idle = ("device time not measured (the trace holds no device event)"
             if busy is None else
@@ -1989,6 +2063,44 @@ def phase_serve(dev, main, card):
     log(f"[serve] one full tick (8 lanes, 8 iterations): {wall:.2f} ms; "
         f"{idle}; {card}")
     log(f"[serve] phase passed in {time.time() - t_phase:.1f}s; {card}")
+
+
+def two_factor_apply(dev, h0, h1, card):
+    """One apply of 8 lanes of the bucket's two factors interleaved in
+    fidx ([a, b, a, b, b, a, a, b], the bucket's whole plans), each lane
+    bitwise equal to that right-hand side applied alone by its handle
+    (the plans cut to its own levels), and to the full-row composition."""
+    import torch
+    from repro_torch.core.pcg import fleet_precondition
+    from repro_torch.core.trisolve import build_schedules_batched
+    fl = h0.fleet
+    a, b = h0.fleet_row, h1.fleet_row
+    order = [h0, h1, h0, h1, h1, h0, h0, h1]
+    fidx = torch.tensor([h.fleet_row for h in order], dtype=torch.int32,
+                        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    R = torch.zeros((8, fl.n_pad), device=dev)
+    R[:, :h0.n] = torch.randn((8, h0.n), generator=gen, device=dev)
+    f_plan, b_plan = fl.plans()
+    got = fleet_precondition(fl.arrays, fidx, R, f_plan=f_plan,
+                             b_plan=b_plan)
+    scheds = {h.fleet_row: build_schedules_batched(
+        [h.factor.to_device(dev)])[0] for h in (h0, h1)}
+    levels = tuple(torch.stack([scheds[int(f)][i].level_of
+                                for f in fidx.tolist()])
+                   for i in (0, 1))
+    full = full_row_apply(h0, levels, fidx, R)
+    check(bitwise_equal(got, full),
+          "serve: the two-factor 8-lane apply differs from the full-row "
+          "composition")
+    for lane, h in enumerate(order):
+        alone = h.precondition(R[lane, :h.n])
+        check(bitwise_equal(alone, got[lane, :h.n]),
+              f"serve: lane {lane} of the two-factor apply differs from "
+              f"its right-hand side applied alone")
+    log(f"[serve] 8 lanes of rows {a} and {b} interleaved in one apply: "
+        f"each lane == the lane alone == the full-row composition, bit for "
+        f"bit; {card}")
 
 
 # kernels that must not launch in the [cluster] phase: the factor tier's
@@ -2051,10 +2163,11 @@ def timed_adopts(cl, record):
 
 class SweepTally:
     """While the ``with`` block runs, tallies per calling thread the
-    ``ell_sweep_fleet`` launches that its callers ask for (one per
-    non-empty level of each sweep, read from the call's ``level_rows``),
-    apart from the runtime's counter, so the counter's total under
-    concurrent threads can be held against it."""
+    ``ell_sweep_fleet`` launches that its callers ask for (one per entry
+    of each call's plan that has rows, and the call's lane grouping where
+    any has), apart from the runtime's counter,
+    so the counter's total under concurrent threads can be held against
+    it."""
 
     def __init__(self):
         self.by_thread = {}
@@ -2064,10 +2177,11 @@ class SweepTally:
         self._orig = orig = spmv.ell_sweep_fleet
 
         def tallied(*args, **kw):
-            level_rows = args[7] if len(args) > 7 else kw["level_rows"]
+            plan = args[7] if len(args) > 7 else kw["plan"]
+            levels = int((plan[:, 1] > 0).sum())
             tid = threading.get_ident()     # each thread writes its own key
-            self.by_thread[tid] = (self.by_thread.get(tid, 0)
-                                   + sum(1 for v in level_rows[1:] if v))
+            self.by_thread[tid] = (self.by_thread.get(tid, 0) + levels
+                                   + (levels > 0))
             return orig(*args, **kw)
         spmv.ell_sweep_fleet = tallied
         return self
@@ -2327,19 +2441,17 @@ def fleet_apply_plain(h, R):
     gives the kernel)."""
     import torch
     from repro_torch.kernels import spmv
-    fl = h.fleet
-    fa = fl.arrays
+    fa = h.fleet.arrays
+    f_plan, b_plan = h.plans()
     fidx = torch.full((R.shape[0],), h.fleet_row, dtype=torch.int32,
                       device=R.device)
     f = fidx.long()
     Y = R.clone()
     spmv.ell_sweep_fleet_plain(fa.fcols, fa.fvals, fa.flen, fa.frows,
-                               fa.fstart, fidx, Y,
-                               fl.f_rows[:int(fa.fnlv[f].max())])
+                               fa.fstart, fidx, Y, f_plan)
     Z = Y * fa.dinv[f]
     spmv.ell_sweep_fleet_plain(fa.bcols, fa.bvals, fa.blen, fa.brows,
-                               fa.bstart, fidx, Z,
-                               fl.b_rows[:int(fa.bnlv[f].max())])
+                               fa.bstart, fidx, Z, b_plan)
     return Z
 
 
@@ -4268,6 +4380,7 @@ def phase_timing(dev, main, spmv_errs):
     from repro_torch.core import parac
     from repro_torch.core.column_math import key_from_seed
     from repro_torch.kernels import sample_clique as sc, spmv
+    from repro_torch.kernels.ops import interleaved
     h = main["handle"]
     g = main["graph"]
     rows = []
@@ -4371,13 +4484,18 @@ def phase_timing(dev, main, spmv_errs):
         device_ms=device_ms))
 
     # ell_sweep_fleet at the largest and at an average forward level, the
-    # 8 lanes of the main path's 8-rhs solve
+    # 8 lanes of the main path's 8-rhs solve, interleaved as the apply
+    # keeps them
+    XI = interleaved(X)
     for tag, lv in sweep_levels(h).items():
         sw = sweep_call(h, lv, X)
         Yp = X.clone()
-        ms = time_ms(lambda: sw(spmv.ell_sweep_fleet, X))
+        ms = time_ms(lambda: sw(spmv.ell_sweep_fleet, XI))
         device_ms = device_ms_per_launch(
-            lambda: sw(spmv.ell_sweep_fleet, X))
+            lambda: sw(spmv.ell_sweep_fleet, XI))
+        level_ms = kernel_device_ms(lambda: sw(spmv.ell_sweep_fleet, XI),
+                                    lambda: None, "ell_sweep_fleet_kernel")
+        k_level = int(level_entry(h, lv)[0, 2])
         plain_ms = time_ms(lambda: sw(spmv.ell_sweep_fleet_plain, Yp),
                            reps=3)
         lo = int(fa.fstart[h.fleet_row, lv])
@@ -4386,9 +4504,10 @@ def phase_timing(dev, main, spmv_errs):
         lc, lvals = fa.fcols[h.fleet_row, r], fa.fvals[h.fleet_row, r]
         live = int(fa.flen[h.fleet_row, r].sum())
         # live slots (index and value) read once for all lanes, with the
-        # rows' list entries and lengths; the y sectors they gather in each
-        # lane; the level's y read and written in each lane
-        y_bytes = L * gathered_bytes(lc, lvals, 1)
+        # rows' list entries and lengths; the y sectors they gather, a
+        # column's L lanes side by side in interleaved y; the level's y
+        # rows read and written
+        y_bytes = gathered_bytes(lc, lvals, L)
         nbytes = live * 8 + (hi - lo) * 8 + y_bytes + 2 * L * (hi - lo) * 4
         # the library yardstick: the level's live slots in CSR times the
         # 8 lanes' x as columns (the product the sweep subtracts)
@@ -4421,7 +4540,10 @@ def phase_timing(dev, main, spmv_errs):
             max_abs_err=spmv_errs["sweep"], ms=ms, plain_ms=plain_ms,
             **bound(nbytes, 2 * L * live), library_ms=lib_ms,
             shape=f"{tag} forward level {lv}: L={L} rows={hi - lo} K={K} "
-                  f"live_slots={live} y_bytes={y_bytes}",
+                  f"level_k={k_level} G={spmv.group_width(k_level)} "
+                  f"live_slots={live} y_bytes={y_bytes} (y interleaved; "
+                  f"the level kernel alone {level_ms} ms a call, the rest "
+                  f"of device_ms the solve's lane grouping)",
             device_ms=device_ms))
     log_rows(rows)
     return rows

@@ -41,7 +41,7 @@ solve; the per-level launch grids come from row counts kept on the host).
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, NamedTuple, Sequence
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -146,19 +146,20 @@ def adjacency_matvec(nbr: torch.Tensor, w: torch.Tensor,
 
 
 def fleet_precondition(fa: FleetArrays, fidx: torch.Tensor, R: torch.Tensor,
-                       *, f_rows: Sequence[int], b_rows: Sequence[int],
-                       kind: str = "factor", active=None) -> torch.Tensor:
+                       *, f_plan: np.ndarray, b_plan: np.ndarray,
+                       kind: str = "factor") -> torch.Tensor:
     """Per-lane preconditioner apply, dispatched on the fleet's apply
     ``kind``:
 
     * ``"factor"`` — ``(G D Gᵀ)⁺``: forward level sweeps → D⁻¹ scale →
       backward level sweeps, each lane reading its own factor's panels
-      and level rows from the stack.  ``f_rows``/``b_rows`` are the
-      bucket's largest row count per level (host ints; their lengths the
-      level ceilings); the trip count of each solve is the live batch's
-      maximum true level count (``active`` masks frozen lanes out of that
-      bound — their output is discarded by the caller).  The randomized
-      AC and the incomplete-Cholesky families.
+      and level rows from the stack.  ``f_plan``/``b_plan`` are the
+      bucket's host sweep plans (``FactorFleet.plans``: per level its row
+      count bound and longest live row), so an apply reads nothing from
+      the device; each triangular solve is one C call.  The working
+      vector is interleaved (``ops.interleaved``) from the first sweep to
+      the second and swept in place: one copy in and one out.  The randomized AC and the
+      incomplete-Cholesky families.
     * ``"spmv"`` — ``M r``: one full-row ``ell_spmv_fleet`` launch over
       the materialized approximate inverse in the forward-panel slots
       (``fcols``/``fvals``, each row's live slots ``flen``); the backward
@@ -168,17 +169,12 @@ def fleet_precondition(fa: FleetArrays, fidx: torch.Tensor, R: torch.Tensor,
         return ops.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, R, lens=fa.flen)
     if kind != "factor":
         raise ValueError(f"unknown preconditioner apply kind: {kind!r}")
-    f = fidx.long()
-    flv, blv = fa.fnlv[f], fa.bnlv[f]
-    if active is not None:
-        flv = torch.where(active, flv, 1)
-        blv = torch.where(active, blv, 1)
-    Y = ops.trisolve_fleet(fa.fcols, fa.fvals, fa.flen, fa.frows, fa.fstart,
-                           fidx, R, level_rows=f_rows, lane_levels=flv)
-    Z = Y * fa.dinv[f]
-    return ops.trisolve_fleet(fa.bcols, fa.bvals, fa.blen, fa.brows,
-                              fa.bstart, fidx, Z, level_rows=b_rows,
-                              lane_levels=blv)
+    Y = ops.trisolve_fleet_(fa.fcols, fa.fvals, fa.flen, fa.frows,
+                            fa.fstart, fidx, ops.interleaved(R), plan=f_plan)
+    Y.mul_(fa.dinv[fidx.long()])
+    ops.trisolve_fleet_(fa.bcols, fa.bvals, fa.blen, fa.brows, fa.bstart,
+                        fidx, Y, plan=b_plan)
+    return Y.contiguous()
 
 
 def project_lanes(Y: torch.Tensor, nvalid: torch.Tensor) -> torch.Tensor:
@@ -332,7 +328,7 @@ def pcg(matvec: Callable, precond: Callable, b: torch.Tensor, *,
 
 
 def pcg_fleet_init(fa: FleetArrays, fidx, B, tol, maxiter, *,
-                   f_rows: Sequence[int], b_rows: Sequence[int],
+                   f_plan: np.ndarray, b_plan: np.ndarray,
                    kind: str = "factor",
                    project: bool = True) -> FleetPCGState:
     """Set up the fleet PCG carry for columns ``B`` ``(L, n_pad)`` (zero
@@ -344,8 +340,8 @@ def pcg_fleet_init(fa: FleetArrays, fidx, B, tol, maxiter, *,
     tol = torch.as_tensor(tol, dtype=torch.float32, device=dev).expand(L)
     base = pcg_batched_init(
         partial(fleet_matvec, fa, fidx),
-        partial(fleet_precondition, fa, fidx, f_rows=f_rows,
-                b_rows=b_rows, kind=kind),
+        partial(fleet_precondition, fa, fidx, f_plan=f_plan,
+                b_plan=b_plan, kind=kind),
         B, tol=tol, project=project, nvalid=fa.nvalid[fidx.long()])
     return FleetPCGState(
         *base, fidx=fidx, tol=tol.contiguous(),
@@ -354,21 +350,21 @@ def pcg_fleet_init(fa: FleetArrays, fidx, B, tol, maxiter, *,
 
 
 def pcg_fleet_body(fa: FleetArrays, s: FleetPCGState, *,
-                   f_rows: Sequence[int], b_rows: Sequence[int],
+                   f_plan: np.ndarray, b_plan: np.ndarray,
                    kind: str = "factor",
                    project: bool = True) -> FleetPCGState:
     """One frozen-lane fleet PCG iteration: lane ``l`` multiplies by and
     preconditions with factor ``fidx[l]`` of the stack."""
     return _pcg_batched_body(
         partial(fleet_matvec, fa, s.fidx),
-        partial(fleet_precondition, fa, s.fidx, f_rows=f_rows,
-                b_rows=b_rows, kind=kind, active=s.active),
+        partial(fleet_precondition, fa, s.fidx, f_plan=f_plan,
+                b_plan=b_plan, kind=kind),
         tol=s.tol, maxiter=s.maxiter, project=project,
         nvalid=fa.nvalid[s.fidx.long()])(s)
 
 
 def pcg_fleet_step(fa: FleetArrays, state: FleetPCGState, *, k: int,
-                   f_rows: Sequence[int], b_rows: Sequence[int],
+                   f_plan: np.ndarray, b_plan: np.ndarray,
                    kind: str = "factor",
                    project: bool = True) -> FleetPCGState:
     """Advance every active lane by up to ``k`` iterations (early exit
@@ -376,22 +372,22 @@ def pcg_fleet_step(fa: FleetArrays, state: FleetPCGState, *, k: int,
     for _ in range(k):
         if not bool(state.active.any()):
             break
-        state = pcg_fleet_body(fa, state, f_rows=f_rows,
-                               b_rows=b_rows, kind=kind, project=project)
+        state = pcg_fleet_body(fa, state, f_plan=f_plan,
+                               b_plan=b_plan, kind=kind, project=project)
     return state
 
 
 def pcg_fleet_solve(fa: FleetArrays, fidx, B, tol, maxiter, *,
-                    f_rows: Sequence[int], b_rows: Sequence[int],
+                    f_plan: np.ndarray, b_plan: np.ndarray,
                     kind: str = "factor",
                     project: bool = True) -> FleetPCGState:
     """One-shot fleet solve: init then iterate until every lane freezes
     (one host read of ``any(active)`` per iteration)."""
-    state = pcg_fleet_init(fa, fidx, B, tol, maxiter, f_rows=f_rows,
-                           b_rows=b_rows, kind=kind, project=project)
+    state = pcg_fleet_init(fa, fidx, B, tol, maxiter, f_plan=f_plan,
+                           b_plan=b_plan, kind=kind, project=project)
     while bool(state.active.any()):
-        state = pcg_fleet_body(fa, state, f_rows=f_rows,
-                               b_rows=b_rows, kind=kind, project=project)
+        state = pcg_fleet_body(fa, state, f_plan=f_plan,
+                               b_plan=b_plan, kind=kind, project=project)
     return state
 
 

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..kernels.runtime import pad_k, resolve_device
+from ..kernels.spmv import cut_plan, sweep_plan
 from ..obs.flight import NULL_FLIGHT
 from .laplacian import Graph, laplacian_adjacency
 from .ref_ac import ACFactor, DeviceFactor
@@ -160,26 +161,35 @@ def _grow(x: torch.Tensor, shape: Tuple[int, ...],
     return torch.nn.functional.pad(x, pad, value=value)
 
 
-def _level_lists(level_of: torch.Tensor, n_levels: int, width: int):
+def _level_lists(level_of: torch.Tensor, row_len: torch.Tensor,
+                 n_levels: int, width: int):
     """One triangular solve's level row list: its rows sorted stably by
     level, each level's start offset in that list (``width`` entries,
     ``n`` from the end of the last level on, so every level past it is
-    empty) and the row count per level (host ints)."""
+    empty), and, from one host read, the row count and the longest live
+    row (``row_len``'s segment maximum) per level, as host int arrays."""
     n = level_of.shape[0]
+    lv = level_of.long()
     rows = torch.sort(level_of, stable=True).indices.to(torch.int32)
-    counts = torch.bincount(level_of.long(), minlength=n_levels)
+    counts = torch.bincount(lv, minlength=n_levels)
+    level_k = torch.zeros(n_levels, dtype=torch.int64,
+                          device=level_of.device).scatter_reduce_(
+        0, lv, row_len.long(), "amax")
     start = torch.full((width,), n, dtype=torch.int32,
                        device=level_of.device)
     start[0] = 0
     start[1:n_levels + 1] = torch.cumsum(counts, 0).to(torch.int32)
-    return rows, start, counts.tolist()
+    counts, level_k = torch.stack([counts, level_k]).cpu().numpy()
+    return rows, start, counts, level_k
 
 
-def _max_rows(a: List[int], b: List[int]) -> List[int]:
-    """Elementwise maximum of two per-level row counts."""
-    n = max(len(a), len(b))
-    a, b = a + [0] * (n - len(a)), b + [0] * (n - len(b))
-    return [max(x, y) for x, y in zip(a, b)]
+def _level_max(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Elementwise maximum of two per-level host arrays ``[2, levels]``
+    (row counts, longest live rows) of any lengths."""
+    out = np.zeros((2, max(a.shape[1], b.shape[1])), np.int64)
+    out[:, :a.shape[1]] = a
+    out[:, :b.shape[1]] = np.maximum(out[:, :b.shape[1]], b)
+    return out
 
 
 def _live_lengths(vals: np.ndarray) -> np.ndarray:
@@ -253,10 +263,14 @@ class _PaddedFactor:
 class FactorFleet:
     """Stacked, bucket-padded factors of one ``(family, n_pad, k_tier)``,
     plus the row bookkeeping that lets handles come and go.  ``arrays``
-    is the live :class:`pcg.FleetArrays` stack; ``f_rows``/``b_rows``
-    keep on the host the largest row count per level of any member
-    admitted, forward and backward (the level sweeps' launch grids; their
-    lengths are the bucket's level ceilings).  Rows are claimed by
+    is the live :class:`pcg.FleetArrays` stack; ``f_plan``/``b_plan``
+    are the host sweep plans of the forward and backward solves
+    (``spmv.sweep_plan``: per level the largest row count and the longest
+    live row of any member admitted, the level sweeps' launch grids and
+    group widths).  They are running maxima, written at admission only:
+    every entry bounds every live member whatever dies meanwhile, and a
+    handle dying on another thread writes nothing to them.  Rows are
+    claimed by
     weak reference: a row frees itself onto a min-heap when its handle
     dies, and admission reuses dead rows (lowest first) before growing
     the stack.  Growth along any axis zero-pads — padding Laplacian slots
@@ -276,8 +290,12 @@ class FactorFleet:
         self.Kl = 1
         self.Kf = 1
         self.Kb = 1
-        self.f_rows: List[int] = [0]   # per-level row maxima (host)
-        self.b_rows: List[int] = [0]
+        # per level, over every member admitted: the largest row count
+        # and the longest live row (host), forward and backward
+        self.f_max = np.zeros((2, 1), np.int64)
+        self.b_max = np.zeros((2, 1), np.int64)
+        self.f_plan = sweep_plan(*self.f_max)
+        self.b_plan = sweep_plan(*self.b_max)
         self.generation = 0        # bumped by compact(): row indices moved
         self.compactions = 0
         self.arrays: Optional[FleetArrays] = None
@@ -288,12 +306,24 @@ class FactorFleet:
     @property
     def f_levels(self) -> int:
         """Bucket-wide forward level ceiling."""
-        return len(self.f_rows)
+        return self.f_max.shape[1]
 
     @property
     def b_levels(self) -> int:
         """Bucket-wide backward level ceiling."""
-        return len(self.b_rows)
+        return self.b_max.shape[1]
+
+    def plans(self, f_levels: Optional[int] = None,
+              b_levels: Optional[int] = None):
+        """``(f_plan, b_plan)`` cut to the levels below ``f_levels`` /
+        ``b_levels`` (host ints: the deepest of the factors a call's lanes
+        read; ``None`` keeps the whole plan)."""
+        f, b = self.f_plan, self.b_plan
+        if f_levels is not None:
+            f = cut_plan(f, f_levels)
+        if b_levels is not None:
+            b = cut_plan(b, b_levels)
+        return f, b
 
     @property
     def capacity(self) -> int:
@@ -402,10 +432,10 @@ class FactorFleet:
                 fnlv=torch.clamp(_grow(a.fnlv, (F,)), min=1),
                 bnlv=torch.clamp(_grow(a.bnlv, (F,)), min=1))
         ix = torch.tensor(rows, dtype=torch.int64, device=dev)
-        flists = [_level_lists(p.fwd.level_of, p.fwd.n_levels, Lf + 1)
-                  for p in pfs]
-        blists = [_level_lists(p.bwd.level_of, p.bwd.n_levels, Lb + 1)
-                  for p in pfs]
+        flists = [_level_lists(p.fwd.level_of, p.fwd.row_len,
+                               p.fwd.n_levels, Lf + 1) for p in pfs]
+        blists = [_level_lists(p.bwd.level_of, p.bwd.row_len,
+                               p.bwd.n_levels, Lb + 1) for p in pfs]
 
         def put(x, vals):
             x[ix] = torch.stack([v.to(dev) for v in vals])
@@ -415,13 +445,13 @@ class FactorFleet:
         put(a.fcols, [_grow(p.fwd.cols, (np_, Kf)) for p in pfs])
         put(a.fvals, [_grow(p.fwd.vals, (np_, Kf)) for p in pfs])
         put(a.flen, [p.fwd.row_len for p in pfs])
-        put(a.frows, [r for r, _, _ in flists])
-        put(a.fstart, [st for _, st, _ in flists])
+        put(a.frows, [r for r, _, _, _ in flists])
+        put(a.fstart, [st for _, st, _, _ in flists])
         put(a.bcols, [_grow(p.bwd.cols, (np_, Kb)) for p in pfs])
         put(a.bvals, [_grow(p.bwd.vals, (np_, Kb)) for p in pfs])
         put(a.blen, [p.bwd.row_len for p in pfs])
-        put(a.brows, [r for r, _, _ in blists])
-        put(a.bstart, [st for _, st, _ in blists])
+        put(a.brows, [r for r, _, _, _ in blists])
+        put(a.bstart, [st for _, st, _, _ in blists])
         put(a.dinv, [p.dinv for p in pfs])
         a.nvalid[ix] = torch.tensor([p.n for p in pfs], dtype=i32, device=dev)
         a.fnlv[ix] = torch.tensor([p.fwd.n_levels for p in pfs], dtype=i32,
@@ -430,10 +460,12 @@ class FactorFleet:
                                   device=dev)
         self.arrays = a
         self.Kl, self.Kf, self.Kb = Kl, Kf, Kb
-        for _, _, counts in flists:
-            self.f_rows = _max_rows(self.f_rows, counts)
-        for _, _, counts in blists:
-            self.b_rows = _max_rows(self.b_rows, counts)
+        for _, _, c, k in flists:
+            self.f_max = _level_max(self.f_max, np.stack([c, k]))
+        for _, _, c, k in blists:
+            self.b_max = _level_max(self.b_max, np.stack([c, k]))
+        self.f_plan = sweep_plan(*self.f_max)
+        self.b_plan = sweep_plan(*self.b_max)
         for (handle, _), row in zip(pairs, rows):
             ref = weakref.ref(handle, self._row_died)
             self._ref2row[ref] = row
@@ -449,8 +481,8 @@ class FactorFleet:
         handles' ``fleet_row`` is rewritten and ``generation`` bumped so
         an engine re-syncs its lanes' factor indices before its next
         step.  Row contents are copied verbatim, so every live handle's
-        solve is bit-identical before and after.  ``f_rows``/``b_rows``
-        (the per-level row maxima) keep the values of every member ever
+        solve is bit-identical before and after.  The sweep plans and
+        ``f_levels``/``b_levels`` keep the values of every member ever
         admitted, as the reference keeps its level ceilings: a sweep then
         may launch rows for which no live member has work, which changes
         no result.  Returns the number of freed stack rows."""
@@ -552,6 +584,11 @@ class PreconditionerHandle:
         out[:, :self.n] = B
         return out
 
+    def plans(self):
+        """The bucket's sweep plans cut to this factor's own levels (the
+        levels past them have no rows for its lanes)."""
+        return self.fleet.plans(self.n_levels_fwd, self.n_levels_bwd)
+
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """``L x`` through the handle's fleet row (the adjacency rows
         already in the bucket stack)."""
@@ -565,9 +602,9 @@ class PreconditionerHandle:
         become lanes)."""
         r = torch.as_tensor(r, dtype=torch.float32, device=self.device)
         R = r[None] if r.dim() == 1 else r.T
+        f_plan, b_plan = self.plans()
         out = fleet_precondition(self.fleet.arrays, self._fidx(R.shape[0]),
-                                 self._pad(R), f_rows=self.fleet.f_rows,
-                                 b_rows=self.fleet.b_rows,
+                                 self._pad(R), f_plan=f_plan, b_plan=b_plan,
                                  kind=self.fleet.kind)[:, :self.n]
         return out[0] if r.dim() == 1 else out.T
 
@@ -581,12 +618,13 @@ class PreconditionerHandle:
                              f"got {tuple(B.shape)}")
         B2 = B[None] if B.dim() == 1 else B
         L = B2.shape[0]
+        f_plan, b_plan = self.plans()
         state = pcg_fleet_solve(
             self.fleet.arrays, self._fidx(L), self._pad(B2),
             torch.full((L,), tol, dtype=torch.float32, device=self.device),
             torch.full((L,), maxiter, dtype=torch.int32, device=self.device),
-            f_rows=self.fleet.f_rows, b_rows=self.fleet.b_rows,
-            kind=self.fleet.kind, project=project)
+            f_plan=f_plan, b_plan=b_plan, kind=self.fleet.kind,
+            project=project)
         res = pcg_fleet_result(state, self.n)
         if B.dim() == 1:
             return PCGResult(x=res.x[0], iters=res.iters[0],

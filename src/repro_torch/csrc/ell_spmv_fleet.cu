@@ -83,27 +83,75 @@
 //   5. The wrapper's host work: kernels/spmv.py resolves this entry point
 //      once and caches it.
 //
-// ell_sweep_fleet: one level lv of a lane-batched unit-triangular solve,
-// in place, with the commit fused in:
+// ell_sweep_fleet: one lane-batched unit-triangular solve, level by
+// level, in place, with the commit fused in:
 //
 //   y[l, i] = y[l, i] - sum_{k < len[f, i]} vals[f, i, k] * y[l, cols[f, i, k]]
 //
-// for the rows i = rows[f, start[f, lv] .. start[f, lv + 1]) of level lv
-// of factor f = fidx[l] (each factor's rows sorted stably by level, with
+// for the rows i = rows[f, start[f, lv] .. start[f, lv + 1]) of each level
+// lv of factor f = fidx[l] (each factor's rows sorted stably by level, with
 // each level's start offset).  Rows of other levels are neither read as
 // outputs nor written; in place is safe because a level's rows read only
-// rows of lower levels.  Each row reads its live slots only (rows are
-// left-packed, len = in-degree), so a row of 10 nonzeros in a 1024-slot
-// panel reads 10 slots, where the full-row kernel read the whole padded
-// panel on every level and the caller kept that level's rows with a
-// where().  The sum keeps the full-row kernel's order (G = group_width(K)
-// threads per row, strided slots, the fixed butterfly) and the commit is
-// one __fsub_rn, so a committed row equals the full-row kernel followed
-// by y - Y bit for bit: the skipped slots hold 0.0 and add exactly
-// nothing for finite y.  Grid (L, ceil(max_rows / rows per block)), with
-// max_rows the bucket's largest row count at this level, kept on the host
-// at admission: a launch needs no host read.  Bound: bytes, the live
-// slots (8 B each) plus the y sectors they gather plus y in and out.
+// rows of lower levels, written by earlier launches (so the read-only
+// cache never holds a stale one).  Replaces, with ell_spmv_fleet, the TPU
+// kernel above: the reference sweeps every level with the full-row kernel
+// and keeps that level's rows with a where().
+//
+// Same bits as the full-row kernel followed by y - Y.  A row reads its len
+// live slots only, with G = group_width(level_k) threads, level_k the
+// level's longest live row over the bucket (the host plan's third column);
+// the full-row kernel reads all K slots with G = group_width(K).  Their
+// sums are equal bit for bit, lane by lane, for finite y:
+//   * slots past len hold 0.0 (col 0), and a fused multiply-add of 0.0
+//     adds exactly nothing to a partial sum other than -0;
+//   * the partial sums start at +0, and a sum becomes -0 only where a
+//     negative product is below half the least subnormal and rounds to
+//     zero: that underflow is the one exception, which the claim excludes;
+//   * with level_k > 32 both widths are 32, so both kernels give thread g
+//     the same live slots in the same order;
+//   * with level_k <= 32, G >= level_k >= len, so each thread holds at
+//     most one live slot; the wider full-row group's extra threads hold
+//     +0, and its extra butterfly rounds (offsets >= G) add +0 to each
+//     thread's value before the rounds that both kernels share.
+// Lanes share a row's read (below) but not its sums: each keeps its own
+// accumulator, summed in the order above, and the group reduces them by
+// the reduce-scatter of the full-row kernel (halve: own + partner, as
+// group_sum), as many halving steps as the group has offsets, then the
+// plain butterfly.  The commit is one __fsub_rn, as torch's y - Y.
+//
+// What bounds it on an H100: bytes at the largest levels (the live slots,
+// 8 B each, read once, the y sectors they gather, each row's list entry,
+// length and y in and out: at the 64^3 cell's largest forward level,
+// 24,322 rows and 32,630 live slots, about 1.2 us for 8 lanes), and the
+// launch and the chain of dependent reads at the others: of that
+// factor's 1,246 levels, 914 hold at most 64 rows and 1,118 a row of more
+// than 32 live slots.  What the design does about each cost:
+//   1. The host.  The level loop runs in the C entry point from a host
+//      plan of (level, row count bound, level_k) that admission builds
+//      (core/solver.py FactorFleet), so a triangular solve is one ctypes
+//      call: no Python, no tensor check and no device read per level.
+//      The lanes are grouped by factor once per solve, by a first small
+//      launch, into a table of passes that a level kernel reads in one
+//      16 B load.
+//   2. Idle threads.  The group width follows the level's longest live
+//      row, not the panel's K: the largest forward level (level_k 5) runs
+//      8 threads a row, 32 rows a block of 256 threads, where groups of
+//      32 (K = 1,024) left 31 of each 32 threads idle, 8 rows a block.
+//   3. Re-reads by every lane.  A block serves a pass of up to 8 lanes of
+//      one factor and reads each live (col, val) once for all of them.
+//   4. The gathers of y.  y may be interleaved ([R][ld] storage, lane l at
+//      offset l).  Where a row then holds exactly a pass's width of lanes
+//      (an 8-lane solve, a served bucket of 8 slots), every pass gathers a
+//      column's whole row as two 16 B loads from one 32 B sector, where
+//      lane-major y costs 8 sectors a slot, and writes its own factor's
+//      lanes: the lanes of two factors interleaved in fidx still load
+//      vectors.
+//   5. Dependent reads.  A row's length, its first slot and the y it will
+//      commit to are read at once; a level with rows longer than 32 slots
+//      (LONG) reads a thread's further slots in batches of 4 (8 for 1-2
+//      lanes), each batch's gathers in flight with the next batch's
+//      (col, val) reads; a level without keeps the registers those would
+//      take, for more blocks an SM.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -111,7 +159,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;            // the sweep's block
+constexpr int kSweepThreads = 256;       // the sweep's block
 
 // ---- the full-row product -------------------------------------------
 constexpr int kSpmvThreads = 512;        // 16 warps a block
@@ -669,34 +717,337 @@ int launch_nb(const int* cols, const float* vals, const int* lens,
                                 stream);
 }
 
-__global__ void __launch_bounds__(kThreads) ell_sweep_fleet_kernel(
+// ---- the level sweep --------------------------------------------------
+
+// Group the sweep's lanes by factor, once per triangular solve, into
+// groups (5 * L int32): at int4 p < L, pass p's (factor, first position
+// in the order, lanes, 0), lanes 0 past the last pass; from 4 * L, the
+// lanes sorted stably by the first lane of their factor.  A pass is a run
+// of up to NB lanes of one factor.
+__global__ void __launch_bounds__(kMaxLanes) group_lanes_kernel(
+    const int* __restrict__ fidx, int* __restrict__ groups, int L, int NB) {
+  __shared__ int s_fidx[kMaxLanes], s_lead[kMaxLanes], s_order[kMaxLanes];
+  __shared__ int4 s_pass[kMaxLanes];
+  __shared__ int s_passes;
+  for (int l = threadIdx.x; l < L; l += blockDim.x) s_fidx[l] = fidx[l];
+  __syncthreads();
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    int lead = l;
+    for (int m = 0; m < l; ++m)
+      if (s_fidx[m] == s_fidx[l]) { lead = m; break; }
+    s_lead[l] = lead;
+  }
+  __syncthreads();
+  int* order = groups + 4 * L;
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    const int lead = s_lead[l];
+    int pos = 0;
+    for (int m = 0; m < L; ++m) {
+      const int lm = s_lead[m];
+      pos += lm < lead || (lm == lead && m < l);
+    }
+    s_order[pos] = l;
+    order[pos] = l;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int passes = 0;
+    for (int q = 0; q < L;) {
+      const int lead = s_lead[s_order[q]];
+      int nl = 1;
+      while (nl < NB && q + nl < L && s_lead[s_order[q + nl]] == lead) ++nl;
+      s_pass[passes++] = make_int4(s_fidx[lead], q, nl, 0);
+      q += nl;
+    }
+    s_passes = passes;
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < L; p += blockDim.x)
+    reinterpret_cast<int4*>(groups)[p] =
+        p < s_passes ? s_pass[p] : make_int4(0, 0, 0, 0);
+}
+
+// The group's NB accumulators summed over its G threads (G a power of two
+// <= 32, groups aligned in the warp): the reduce-scatter's halving steps
+// while the group has offsets left for them (min(log2 G, log2 NB) steps),
+// then the butterfly's remaining offsets on one value.  Thread g of the
+// group ends with the full sums of NB >> steps lanes in a[0 ..): those
+// from (g >> (log2 G - steps)) * (NB >> steps) on, each bitwise
+// ell::group_sum of that lane's accumulator (the note above).
+template <int NB>
+__device__ __forceinline__ void group_reduce(float (&a)[NB], int lane_id,
+                                            int G) {
+  int off = G >> 1, held = NB;
+  if constexpr (NB >= 8) {
+    if (off > 0) { halve<8>(a, off, lane_id & off); off >>= 1; held = 4; }
+  }
+  if constexpr (NB >= 4) {
+    if (off > 0 && held == 4) {
+      halve<4>(a, off, lane_id & off); off >>= 1; held = 2;
+    }
+  }
+  if constexpr (NB >= 2) {
+    if (off > 0 && held == 2) {
+      halve<2>(a, off, lane_id & off); off >>= 1; held = 1;
+    }
+  }
+  for (; off > 0; off >>= 1)
+    a[0] = __fadd_rn(a[0], __shfl_xor_sync(kFull, a[0], off));
+}
+
+// Where a pass reads and writes y: accumulator b is lane b of an
+// interleaved y whose rows hold NB lanes (VEC: one or two 16 B loads of a
+// 32 B sector a slot), or the pass's lane order[q0 + b] (held in lanes[b]
+// for the gathers), one load each; it is written where bit b of member is
+// set.
+template <int NB, bool VEC>
+struct PassLanes {
+  int lanes[VEC ? 1 : NB];
+  const int* order;
+  int q0, nl, sl, si;
+  unsigned member;
+
+  // accumulator b's entry of row i: b fixed at compile time (gathers)
+  __device__ __forceinline__ int64_t at(int b, int64_t i) const {
+    const int lane = VEC ? b : lanes[VEC ? 0 : b];
+    return lane * static_cast<int64_t>(sl) + i * si;
+  }
+  // the same for a b known only at run time (the writers')
+  __device__ __forceinline__ int64_t at_dyn(int b, int64_t i) const {
+    const int lane = VEC ? b : order[q0 + b];
+    return lane * static_cast<int64_t>(sl) + i * si;
+  }
+};
+
+// xv[b] = accumulator b's lane of y at column c.
+template <int NB, bool VEC>
+__device__ __forceinline__ void gather(float (&xv)[NB], int c,
+                                       const float* y,
+                                       const PassLanes<NB, VEC>& pl) {
+  if constexpr (VEC) {
+    load_lanes<NB, true>(xv, y + static_cast<int64_t>(c) * pl.si);
+  } else {
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      xv[b] = b < pl.nl ? __ldg(y + pl.at(b, c)) : 0.0f;
+  }
+}
+
+// Thread g's partial sums of one row: its slots g, g + G, ... below len in
+// ascending order, one fused multiply-add per slot and accumulator, the
+// first slot (v0, c0) already read.  LONG (a level whose longest row
+// exceeds 32 slots, so G = 32 and a thread may hold several): the rest go
+// in batches of U slots, the batch's (col, val) pairs read together and
+// its gathers issued with the next batch's reads, then its multiply-adds
+// in slot order, so a long row costs about one round trip to memory a
+// batch, not two a slot (the sums are the same).  Otherwise each thread holds one slot at most, and the kernel
+// keeps the registers the batches would take for more blocks an SM.
+template <int NB, bool VEC, bool LONG>
+__device__ __forceinline__ void row_sum(float (&acc)[NB],
+                                        const int* __restrict__ cols,
+                                        const float* __restrict__ vals,
+                                        int len, int g, int G, float v0,
+                                        int c0, const float* y,
+                                        const PassLanes<NB, VEC>& pl) {
+  constexpr int U = NB >= 4 ? 4 : 8;
+  if (g < len) {
+    float xv[NB];
+    gather<NB, VEC>(xv, c0, y, pl);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) acc[b] = __fmaf_rn(v0, xv[b], acc[b]);
+  }
+  if constexpr (!LONG) return;
+  // software-pipelined: a batch's gathers are in flight with the next
+  // batch's (col, val) reads
+  float v[U];
+  int c[U];
+  auto read = [&](int k) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool ok = k + u * G < len;
+      v[u] = ok ? __ldg(vals + k + u * G) : 0.0f;
+      c[u] = ok ? __ldg(cols + k + u * G) : 0;
+    }
+  };
+  int k = g + G;
+  if (k < len) read(k);
+  for (; k < len; k += U * G) {
+    float xv[U][NB], vk[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      vk[u] = v[u];
+      if (k + u * G < len) {
+        gather<NB, VEC>(xv[u], c[u], y, pl);
+      } else {
+#pragma unroll
+        for (int b = 0; b < NB; ++b) xv[u][b] = 0.0f;
+      }
+    }
+    if (k + U * G < len) read(k + U * G);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k + u * G < len) {
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          acc[b] = __fmaf_rn(vk[u], xv[u][b], acc[b]);
+      }
+    }
+  }
+}
+
+// One pass over the block's rows of level lv of factor f: G threads a row,
+// thread g summing its slots g, g + G, ... below the row's length in
+// ascending order for every accumulator at once, then group_reduce, then
+// the commit y - sum by the writers.
+template <int NB, bool VEC, bool LONG>
+__device__ __forceinline__ void sweep_pass(
+    const int* __restrict__ cols, const float* __restrict__ vals,
+    const int* __restrict__ lens, const int* __restrict__ rows, float* y,
+    const PassLanes<NB, VEC>& pl, int64_t f, int lo, int count, int r,
+    int R, int K, int G, int g, int lane_id, int first, int held,
+    bool writer) {
+  float acc[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) acc[b] = 0.0f;
+  float own0 = 0.0f;                // the first written sum's y, read early
+  int i = 0;
+  if (r < count) {
+    i = __ldg(rows + f * R + lo + r);
+    const int64_t base = (f * R + i) * static_cast<int64_t>(K);
+    // the row's length, its first slot and the own value are read at
+    // once, not one after another
+    const int len = __ldg(lens + f * R + i);
+    float v0 = 0.0f;
+    int c0 = 0;
+    if (g < K) {
+      v0 = __ldg(vals + base + g);
+      c0 = __ldg(cols + base + g);
+    }
+    if (writer && (pl.member >> first & 1u)) own0 = y[pl.at_dyn(first, i)];
+    row_sum<NB, VEC, LONG>(acc, cols + base, vals + base, len, g, G, v0, c0,
+                           y, pl);
+  }
+  group_reduce<NB>(acc, lane_id, G);
+  if (r < count && writer) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int b = first + j;
+      if (j < held && (pl.member >> b & 1u)) {
+        const int64_t at = pl.at_dyn(b, i);
+        y[at] = __fsub_rn(j == 0 ? own0 : y[at], acc[j]);
+      }
+    }
+  }
+}
+
+// One level lv of the sweep for NB lanes a pass.  Block (x, y) takes the
+// rows x * (kSweepThreads / G) .. of level lv, G threads a row, in the
+// passes y, y + gridDim.y, ... of the lanes' grouping.  y holds lane l's
+// row i at y[l * sl + i * si]: lane-major (sl = R, si = 1) or interleaved
+// (sl = 1, si = ld >= L; one 32 B sector then holds a column's value for
+// 8 lanes).  Each (col, val) pair is read once for the pass's lanes.
+// Where an interleaved row holds exactly NB lanes (si == NB: a served
+// bucket of 8 slots, an 8-rhs solve), a pass sums all NB of them from
+// one 32 B sector a slot and writes only its own factor's: the others'
+// sums use this factor's row and are dropped.
+template <int NB, bool LONG>
+__global__ void __launch_bounds__(kSweepThreads) ell_sweep_fleet_kernel(
     const int* __restrict__ cols, const float* __restrict__ vals,
     const int* __restrict__ lens, const int* __restrict__ rows,
-    const int* __restrict__ starts, const int* __restrict__ fidx, float* y,
-    int R, int K, int n_starts, int lv, int G, int tiles) {
-  const int lane = blockIdx.x;
-  const int rows_per_block = kThreads / G;
-  const int g = threadIdx.x % G;
-  const int r_local = threadIdx.x / G;
-  const int64_t f = fidx[lane];
-  const int lo = starts[f * n_starts + lv];
-  const int count = starts[f * n_starts + lv + 1] - lo;
-  const int* level_rows = rows + f * R + lo;
-  float* yl = y + static_cast<int64_t>(lane) * R;
-  for (int tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
-    if (tile * rows_per_block >= count) return;   // uniform over the block
-    const int r = tile * rows_per_block + r_local;
-    float acc[1] = {0.0f};
-    int i = 0;
-    if (r < count) {
-      i = level_rows[r];
-      const int64_t base = (f * R + i) * static_cast<int64_t>(K);
-      ell::row_partial<1>(cols + base, vals + base, yl, 1, lens[f * R + i],
-                          g, G, 1, acc);
+    const int* __restrict__ starts, const int* __restrict__ fidx,
+    const int* __restrict__ groups, float* y, int L, int R, int K,
+    int n_starts, int lv, int G, int sl, int si) {
+  const int* order = groups + 4 * L;
+  const int rows_per_block = kSweepThreads / G;
+  const int g = threadIdx.x & (G - 1);
+  const int lane_id = threadIdx.x & 31;
+  const int r = blockIdx.x * rows_per_block + static_cast<int>(threadIdx.x) / G;
+  // the accumulators whose full sums this thread holds after group_reduce,
+  // and whether it writes them (one writer per sum): G and NB fix them
+  constexpr int h = NB == 8 ? 3 : NB == 4 ? 2 : NB == 2 ? 1 : 0;
+  const int lg = __ffs(G) - 1;
+  const int steps = lg < h ? lg : h;
+  const int held = NB >> steps;
+  const int first = (g >> (lg - steps)) * held;
+  const bool writer = (g & ((1 << (lg - steps)) - 1)) == 0;
+  // vector gathers: an interleaved row of exactly NB lanes, read whole
+  const bool vec = NB >= 2 && sl == 1 && si == NB
+      && reinterpret_cast<uintptr_t>(y) % (NB >= 4 ? 16 : 8) == 0;
+  for (int p = blockIdx.y; p < L; p += gridDim.y) {
+    const int4 ps = reinterpret_cast<const int4*>(groups)[p];
+    if (ps.z == 0) break;                        // past the last pass
+    const int64_t f = ps.x;
+    const int q0 = ps.y, nl = ps.z;
+    const int lo = __ldg(starts + f * n_starts + lv);
+    const int count = __ldg(starts + f * n_starts + lv + 1) - lo;
+    if (static_cast<int>(blockIdx.x) * rows_per_block >= count)
+      continue;                                   // uniform over the block
+    if (vec) {
+      // every lane of the row is summed; the factor's lanes are written
+      PassLanes<NB, true> pl;
+      pl.member = 0;
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        pl.member |= static_cast<unsigned>(__ldg(fidx + b) == f) << b;
+      pl.order = order; pl.q0 = q0;
+      pl.nl = nl; pl.sl = sl; pl.si = si;
+      sweep_pass<NB, true, LONG>(cols, vals, lens, rows, y, pl, f, lo, count,
+                                 r, R, K, G, g, lane_id, first, held,
+                                 writer);
+    } else {
+      PassLanes<NB, false> pl;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) pl.lanes[b] = order[q0 + (b < nl ? b : 0)];
+      pl.order = order; pl.q0 = q0;
+      pl.nl = nl; pl.sl = sl; pl.si = si;
+      pl.member = (1u << nl) - 1;
+      sweep_pass<NB, false, LONG>(cols, vals, lens, rows, y, pl, f, lo,
+                                  count, r, R, K, G, g, lane_id, first, held,
+                                  writer);
     }
-    const float sum = ell::group_sum(acc[0], G);
-    if (r < count && g == 0) yl[i] = __fsub_rn(yl[i], sum);
   }
+}
+
+template <int NB>
+int sweep_levels(const int* cols, const float* vals, const int* lens,
+                 const int* rows, const int* starts, const int* fidx,
+                 int* groups, float* y, const int* plan, int n_plan, int L,
+                 int R, int K, int n_starts, int sl, int si,
+                 cudaStream_t stream) {
+  bool any = false;
+  for (int e = 0; e < n_plan; ++e) any = any || plan[3 * e + 1] > 0;
+  if (!any) return 0;
+  group_lanes_kernel<<<1, L < 32 ? 32 : (L + 31) & ~31, 0, stream>>>(
+      fidx, groups, L, NB);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  // one y block more than the fewest passes, so the passes of a launch
+  // whose lanes hold two factors (a served bucket) run side by side;
+  // blocks past the passes leave at once
+  const int fewest = (L + NB - 1) / NB;
+  const int grid_y = fewest + 1 < L ? fewest + 1 : L;
+  int launched = 1;                        // the grouping launch
+  for (int e = 0; e < n_plan; ++e) {
+    const int lv = plan[3 * e], max_rows = plan[3 * e + 1];
+    if (max_rows <= 0) continue;
+    const int level_k = plan[3 * e + 2];
+    const int G = ell::group_width(level_k);
+    const int rows_per_block = kSweepThreads / G;
+    const int tiles = (max_rows + rows_per_block - 1) / rows_per_block;
+    const dim3 grid(tiles, grid_y);
+    if (level_k > 32)
+      ell_sweep_fleet_kernel<NB, true><<<grid, kSweepThreads, 0, stream>>>(
+          cols, vals, lens, rows, starts, fidx, groups, y, L, R, K, n_starts,
+          lv, G, sl, si);
+    else
+      ell_sweep_fleet_kernel<NB, false><<<grid, kSweepThreads, 0, stream>>>(
+          cols, vals, lens, rows, starts, fidx, groups, y, L, R, K, n_starts,
+          lv, G, sl, si);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    ++launched;
+  }
+  return launched;
 }
 
 }  // namespace
@@ -734,24 +1085,40 @@ extern "C" int ell_spmv_fleet_launch(const int* cols, const float* vals,
   }
 }
 
-// Returns a cudaError_t; 0 on a successful launch.  Level lv of the sweep,
-// in place on y [L, R]: cols/vals [F, R, K], lens/rows [F, R] int32,
+// One lane-batched triangular solve, in place on y [L, R] (lane l's row
+// i at y[l * sl + i * si]): cols/vals [F, R, K], lens/rows [F, R] int32,
 // starts [F, n_starts] int32 (level lv's rows of factor f are
-// rows[f, starts[f, lv] .. starts[f, lv + 1])), fidx [L] int32; max_rows
-// bounds every lane's row count at lv (0: nothing to launch).
+// rows[f, starts[f, lv] .. starts[f, lv + 1])), fidx [L] int32 with
+// L <= 1024, groups 5 * L int32 of scratch (16 B aligned), plan a host array
+// [n_plan, 3] int32 of (level, row count bound, longest live row) per
+// level, in solve order, each bounding every lane's factor.  One launch
+// per level with rows, G = group_width(longest live row), after one
+// launch that groups the lanes by factor.  Returns the number of
+// launches, the grouping launch included (0 when no level has rows), or
+// minus the cudaError_t of the first launch that failed.
 extern "C" int ell_sweep_fleet_launch(const int* cols, const float* vals,
                                       const int* lens, const int* rows,
                                       const int* starts, const int* fidx,
-                                      float* y, int L, int R, int K,
-                                      int n_starts, int lv, int max_rows,
+                                      int* groups, float* y, const int* plan,
+                                      int n_plan, int L, int R, int K,
+                                      int n_starts, int sl, int si,
                                       void* stream) {
-  if (L == 0 || max_rows <= 0) return 0;
-  const int G = ell::group_width(K);
-  const int rows_per_block = kThreads / G;
-  const int tiles = (max_rows + rows_per_block - 1) / rows_per_block;
-  dim3 grid(L, tiles < 65535 ? tiles : 65535);
-  ell_sweep_fleet_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      cols, vals, lens, rows, starts, fidx, y, R, K, n_starts, lv, G, tiles);
-  return static_cast<int>(cudaGetLastError());
+  if (L == 0) return 0;
+  if (L < 0 || L > kMaxLanes)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (lanes_a_pass(L)) {
+    case 8:
+      return sweep_levels<8>(cols, vals, lens, rows, starts, fidx, groups, y,
+                             plan, n_plan, L, R, K, n_starts, sl, si, s);
+    case 4:
+      return sweep_levels<4>(cols, vals, lens, rows, starts, fidx, groups, y,
+                             plan, n_plan, L, R, K, n_starts, sl, si, s);
+    case 2:
+      return sweep_levels<2>(cols, vals, lens, rows, starts, fidx, groups, y,
+                             plan, n_plan, L, R, K, n_starts, sl, si, s);
+    default:
+      return sweep_levels<1>(cols, vals, lens, rows, starts, fidx, groups, y,
+                             plan, n_plan, L, R, K, n_starts, sl, si, s);
+  }
 }

@@ -11,7 +11,7 @@ full-row composition it is held against) and over numpy slabs
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,31 +65,46 @@ def ell_spmv_fleet(cols, vals, fidx, x, lens=None) -> torch.Tensor:
 
 
 def trisolve_fleet(cols, vals, lens, rows, starts, fidx, y, *,
-                   level_rows: Sequence[int],
-                   lane_levels: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
+                   plan: np.ndarray) -> torch.Tensor:
     """Lane-batched unit-triangular solve over level rows: one
-    ``ell_sweep_fleet`` launch per level ``lv = 1 .. bound-1`` updates, in
-    place on a copy of ``y`` ``[L, n]``, only the rows at that level:
-    ``y[l, i] -= Σ_k vals[f, i, k]·y[l, cols[f, i, k]]``, ``f = fidx[l]``.
+    ``ell_sweep_fleet`` call, whose C loop launches one kernel per level
+    of ``plan`` and updates, in place on a copy of ``y`` ``[L, n]``, only
+    the rows at that level: ``y[l, i] -= Σ_k vals[f, i, k]·y[l, cols[f, i,
+    k]]``, ``f = fidx[l]``.
 
     ``cols``/``vals`` ``[F, n, K]``, ``lens`` (live slots per row) and
     ``rows`` (each factor's rows sorted stably by level) ``[F, n]`` and
     ``starts`` ``[F, >= levels + 1]`` (each level's offset into ``rows``)
-    are fleet stacks read through ``fidx`` ``[L]``.  ``level_rows`` (host
-    ints) is the bucket's largest row count per level; its length is the
-    static level ceiling.  ``lane_levels`` ``[L]`` (each lane's true level
-    count) lowers the bound to the batch's live maximum — one host read
-    per solve.  A level past a lane's depth has no rows for it, so the
-    bound never changes a result.  Each committed row equals
-    :func:`trisolve_fleet_masked`'s bit for bit; ``y`` is not modified."""
-    bound = len(level_rows)
-    if lane_levels is not None:
-        bound = min(int(lane_levels.max()), bound)
-    y = y.clone(memory_format=torch.contiguous_format)
+    are fleet stacks read through ``fidx`` ``[L]``.  ``plan`` is the
+    host array of ``spmv.sweep_plan`` (``FactorFleet.f_plan`` / ``b_plan``,
+    built at admission): per level its row count bound and longest live
+    row over the bucket, so the solve reads nothing from the device.  A
+    level past a lane's depth has no rows for it.  Each committed row
+    equals :func:`trisolve_fleet_masked`'s bit for bit; ``y`` is not
+    modified, and the result keeps its layout (lane-major, or
+    :func:`interleaved`)."""
+    return trisolve_fleet_(cols, vals, lens, rows, starts, fidx,
+                           y.clone(memory_format=torch.preserve_format),
+                           plan=plan)
+
+
+def trisolve_fleet_(cols, vals, lens, rows, starts, fidx, y, *,
+                    plan: np.ndarray) -> torch.Tensor:
+    """:func:`trisolve_fleet` in place on ``y``, for a caller that owns
+    it (no copy); returns ``y``."""
     _spmv.ell_sweep_fleet(cols, vals, lens, rows, starts,
-                          fidx.to(torch.int32), y, level_rows[:bound])
+                          fidx.to(torch.int32), y, plan)
     return y
+
+
+def interleaved(y: torch.Tensor) -> torch.Tensor:
+    """A copy of ``y`` ``[L, n]`` with its lanes interleaved: the
+    transpose of a contiguous ``[n, L]``, so one column's lanes lie side by
+    side (the level sweep gathers them from one 32 B sector)."""
+    out = torch.empty((y.shape[1], y.shape[0]), dtype=y.dtype,
+                      device=y.device).t()
+    out.copy_(y)
+    return out
 
 
 def trisolve_fleet_masked(cols, vals, fidx, level_of, y, *, n_levels: int,

@@ -12,12 +12,15 @@ versions.  A CPU tensor takes the plain version, a CUDA tensor the kernel
   ``lens = None`` case.  Source: ``csrc/ell_spmv_fleet.cu``: each block
   groups the lanes by factor and reads a row's live slots once for up to
   8 lanes of its factor.
-* ``ell_sweep_fleet`` — the fleet's triangular-solve sweeps over level
-  rows, in place: for each level ``lv``, ``y[l, i] -= Σ_{k < len[f, i]}
-  vals[f, i, k] · y[l, cols[f, i, k]]`` for the rows ``i`` of level
-  ``lv`` of factor ``f = fidx[l]``, listed in ``rows[f]`` from
-  ``starts[f, lv]`` to ``starts[f, lv + 1]``.  One launch per level of
-  the same source's second kernel; a committed row equals
+* ``ell_sweep_fleet`` — one of the fleet's triangular solves over level
+  rows, in place: for each level ``lv`` of a host plan, ``y[l, i] -=
+  Σ_{k < len[f, i]} vals[f, i, k] · y[l, cols[f, i, k]]`` for the rows
+  ``i`` of level ``lv`` of factor ``f = fidx[l]``, listed in ``rows[f]``
+  from ``starts[f, lv]`` to ``starts[f, lv + 1]``.  One C call per solve,
+  which groups the lanes by factor in one launch and then launches the
+  same source's level kernel once per level,
+  each row's group as wide as the level's longest live row and each row
+  read once for up to 8 lanes of its factor; a committed row equals
   ``ell_spmv_fleet`` followed by ``y - Y`` bit for bit.
 * ``ell_spmv`` — one vector: ``y[i] = Σ_k vals[i, k] · x[cols[i, k]]``
   for any ``R`` and ``K``.  Replaces ``ell_spmv_pallas``.  Source:
@@ -161,29 +164,29 @@ def ell_spmv_fleet_error_bounds(cols, vals, fidx, x):
 
 
 def ell_sweep_fleet_plain(cols, vals, lens, rows, starts, fidx, y,
-                          level_rows) -> None:
+                          plan) -> None:
     """The plain version of ``ell_sweep_fleet``, on the same arguments and
-    in place: level by level, lane by lane, the lane's level rows gathered
-    through its factor's list, summed as :func:`ell_spmv_plain` sums them
-    (over the level's longest live length: the slots past a row's own
-    length hold 0.0 and add exactly nothing), subtracted and scattered
-    back."""
-    _check_sweep_shapes(cols, vals, lens, rows, starts, fidx, y, level_rows)
+    in place: level by level of the plan, lane by lane, the lane's level
+    rows gathered through its factor's list, summed as
+    :func:`ell_spmv_plain` sums them (over the lane's longest live row at
+    that level: the slots past a row's own length hold 0.0 and add exactly
+    nothing), subtracted and scattered back."""
+    _check_sweep_shapes(cols, vals, lens, rows, starts, fidx, y, plan)
     args = (cols, vals, lens, rows, starts, y)
     if y.device.type == "cpu":
         # numpy views of the same memory, so the sweep still lands in y
-        _sweep_levels(*(t.numpy() for t in args), fidx.tolist(), level_rows,
+        _sweep_levels(*(t.numpy() for t in args), fidx.tolist(), plan,
                       _row_sums_np)
     else:
-        _sweep_levels(*args, fidx.tolist(), level_rows, _row_sums_torch)
+        _sweep_levels(*args, fidx.tolist(), plan, _row_sums_torch)
 
 
-def _sweep_levels(cols, vals, lens, rows, starts, y, fl, level_rows,
+def _sweep_levels(cols, vals, lens, rows, starts, y, fl, plan,
                   row_sums) -> None:
     """:func:`ell_sweep_fleet_plain`'s level loop, in place on tensors or
     on numpy arrays; ``row_sums`` is the matching row sum."""
-    for lv in range(1, len(level_rows)):
-        if not level_rows[lv]:
+    for lv, count, _ in plan.tolist():
+        if not count:
             continue
         for lane, f in enumerate(fl):
             lo, hi = int(starts[f, lv]), int(starts[f, lv + 1])
@@ -198,21 +201,56 @@ def _sweep_levels(cols, vals, lens, rows, starts, y, fl, level_rows,
                     cols[f, r, :k], vals[f, r, :k], y[lane])
 
 
+def sweep_plan(counts, level_k) -> np.ndarray:
+    """The host plan of one triangular solve, from each level's row count
+    bound and longest live row (sequences indexed by level): one
+    ``(level, rows, level_k)`` int32 row per level ``>= 1`` that has rows,
+    in solve order, C-contiguous (what ``ell_sweep_fleet`` and its plain
+    version take)."""
+    counts = np.asarray(counts, np.int64)
+    level_k = np.asarray(level_k, np.int64)
+    lv = np.flatnonzero(counts[1:] > 0) + 1
+    return np.ascontiguousarray(np.stack(
+        [lv, counts[lv], level_k[lv]], axis=1).astype(np.int32).reshape(-1, 3))
+
+
+def cut_plan(plan: np.ndarray, levels: int) -> np.ndarray:
+    """The plan's entries below level ``levels`` (the deepest level count
+    of the factors a call's lanes read: the levels past it have no rows
+    for them)."""
+    return plan[:int(np.searchsorted(plan[:, 0], levels))]
+
+
 def _check_sweep_shapes(cols, vals, lens, rows, starts, fidx, y,
-                        level_rows) -> None:
-    """The sweep's shape contract, for the kernel and the plain version:
-    levels ``1 .. len(level_rows) - 1`` read ``starts[:, lv + 1]``, so
-    ``starts`` needs ``len(level_rows) + 1`` columns."""
+                        plan) -> None:
+    """The sweep's contract, for the kernel and the plain version: the
+    stacks' shapes, and the plan a C-contiguous int32 host array ``[P, 3]``
+    of ``(level, rows, level_k)`` with levels rising from 1, each level
+    ``lv`` below ``starts.shape[1] - 1`` (it reads ``starts[:, lv + 1]``),
+    and ``0 <= level_k <= K``."""
     F, R = cols.shape[:2]
     L = fidx.shape[0]
     if (cols.dim() != 3 or vals.shape != cols.shape
             or lens.shape != (F, R) or rows.shape != (F, R)
             or starts.dim() != 2 or starts.shape[0] != F
-            or y.shape != (L, R) or fidx.dim() != 1
-            or len(level_rows) + 1 > starts.shape[1]):
+            or y.shape != (L, R) or fidx.dim() != 1):
         raise ValueError("ell_sweep_fleet: cols/vals [F, R, K], lens/rows "
-                         "[F, R], starts [F, >= levels + 1], y [L, R] and "
+                         "[F, R], starts [F, levels + 1], y [L, R] and "
                          "fidx [L] must agree")
+    if not (isinstance(plan, np.ndarray) and plan.dtype == np.int32
+            and plan.ndim == 2 and plan.shape[1] == 3
+            and plan.flags.c_contiguous):
+        raise ValueError("ell_sweep_fleet: plan must be a C-contiguous "
+                         "int32 host array [P, 3]")
+    lv, count, k = plan.T.astype(np.int64)
+    if plan.shape[0] and (
+            lv[0] < 1 or (np.diff(lv) <= 0).any()
+            or lv[-1] + 1 >= starts.shape[1] or (count < 0).any()
+            or (k < 0).any() or (k > cols.shape[2]).any()):
+        raise ValueError(f"ell_sweep_fleet: a plan entry lies outside the "
+                         f"levels 1 .. {starts.shape[1] - 2} of starts or "
+                         f"the panel's {cols.shape[2]} slots, or the levels "
+                         f"do not rise")
 
 
 # the C entry points, resolved and typed once each
@@ -308,19 +346,25 @@ def ell_spmv_fleet(cols, vals, fidx, x, lens=None, *,
 
 
 def ell_sweep_fleet(cols, vals, lens, rows, starts, fidx, y,
-                    level_rows) -> None:
-    """The sweeps of one lane-batched unit-triangular solve, in place on
-    ``y`` float32 ``[L, R]``: levels ``1 .. len(level_rows) - 1`` in order,
-    one launch each.  cols int32 / vals float32 ``[F, R, K]``; lens (live
-    slots per row) and rows (each factor's rows sorted stably by level)
-    int32 ``[F, R]``; starts int32 ``[F, n_starts]`` (level ``lv``'s rows
-    of factor ``f`` are ``rows[f, starts[f, lv]:starts[f, lv + 1]]``);
-    fidx int32 ``[L]``.  ``level_rows`` (host ints) bounds each level's
-    row count over the lanes; a level whose entry is 0 is skipped.  The
-    tensors are checked once, not per level."""
+                    plan) -> None:
+    """One lane-batched unit-triangular solve, in place on ``y`` float32
+    ``[L, R]``: one launch that groups the lanes by factor, then the
+    levels of ``plan`` in order, one kernel launch each, all from one C
+    call (its launch count, the grouping included, goes to the runtime's
+    counter).  cols int32 / vals float32 ``[F, R, K]``; lens
+    (live slots per row) and rows (each factor's rows sorted stably by
+    level) int32 ``[F, R]``; starts int32 ``[F, n_starts]`` (level
+    ``lv``'s rows of factor ``f`` are ``rows[f, starts[f, lv]:starts[f,
+    lv + 1]]``); fidx int32 ``[L]``, at most :data:`FLEET_MAX_LANES` on
+    the card.  ``plan`` is the host array of :func:`sweep_plan`: per level
+    its row count and longest live row, each bounding every lane's factor
+    (the launch grid and the group width).  ``y`` is lane-major (C
+    contiguous) or interleaved (the transpose of a C-contiguous ``[R,
+    L]``: a column's lanes side by side); either gives the same bits.
+    The tensors are checked once, not per level."""
     if y.device.type == "cpu":
         return ell_sweep_fleet_plain(cols, vals, lens, rows, starts, fidx, y,
-                                     level_rows)
+                                     plan)
     if y.device.type != "cuda":
         raise ValueError(f"ell_sweep_fleet: unsupported device {y.device}")
     dev = y.device
@@ -329,23 +373,28 @@ def ell_sweep_fleet(cols, vals, lens, rows, starts, fidx, y,
     for t, what in ((lens, "lens"), (rows, "rows"), (starts, "starts")):
         runtime.require(t, what, torch.int32, 2, dev)
     runtime.require(fidx, "fidx", torch.int32, 1, dev)
-    runtime.require(y, "y", torch.float32, 2, dev)
-    _check_sweep_shapes(cols, vals, lens, rows, starts, fidx, y, level_rows)
+    if y.dtype != torch.float32:
+        raise TypeError(f"y: expected torch.float32, got {y.dtype}")
+    if y.device != dev or y.dim() != 2 or not (y.is_contiguous()
+                                                or y.t().is_contiguous()):
+        raise ValueError("y: must be [L, R], lane-major or interleaved "
+                         "(the transpose of a contiguous [R, L])")
+    _check_sweep_shapes(cols, vals, lens, rows, starts, fidx, y, plan)
     F, R, K = cols.shape
     L = y.shape[0]
-    n_starts = starts.shape[1]
-    launch = _launcher("ell_spmv_fleet", 7, 6, "ell_sweep_fleet")
-    stream = runtime.stream_ptr(y)
-    ptrs = (cols.data_ptr(), vals.data_ptr(), lens.data_ptr(),
-            rows.data_ptr(), starts.data_ptr(), fidx.data_ptr(),
-            y.data_ptr())
-    for lv in range(1, len(level_rows)):
-        if not level_rows[lv]:
-            continue
-        err = launch(*ptrs, L, R, K, n_starts, lv, int(level_rows[lv]),
-                     stream)
-        runtime.check_launch("ell_sweep_fleet", err)
-        runtime.count_launch("ell_sweep_fleet")
+    if L > FLEET_MAX_LANES or L * R >= 2 ** 31:
+        raise ValueError(f"ell_sweep_fleet: {L} lanes of {R} rows; one call "
+                         f"takes at most {FLEET_MAX_LANES} lanes and 2^31 "
+                         f"entries")
+    groups = torch.empty(5 * L, dtype=torch.int32, device=dev)
+    launched = _launcher("ell_spmv_fleet", 9, 7, "ell_sweep_fleet")(
+        cols.data_ptr(), vals.data_ptr(), lens.data_ptr(), rows.data_ptr(),
+        starts.data_ptr(), fidx.data_ptr(), groups.data_ptr(), y.data_ptr(),
+        plan.ctypes.data, plan.shape[0], L, R, K, starts.shape[1],
+        y.stride(0), y.stride(1), runtime.stream_ptr(y))
+    if launched < 0:
+        runtime.check_launch("ell_sweep_fleet", -launched)
+    runtime.count_launch("ell_sweep_fleet", launched)
 
 
 def _check_panel(name, cols, vals, x, x_ndim):

@@ -296,21 +296,21 @@ class _BucketLanes:
 
 def _admit_program(fa: FleetArrays, state: FleetPCGState,
                    rows: torch.Tensor, B, fidx, tol, maxiter, *,
-                   f_rows, b_rows, kind: str = "factor"):
+                   f_plan, b_plan, kind: str = "factor"):
     """Initialize the admitted columns (same math as a direct solve's
     init, on those columns only) and write every carry field into the
     resident state at ``rows`` (one ``index_copy_`` per field).  Returns
     the columns' initial active flags."""
-    init = pcg_fleet_init(fa, fidx, B, tol, maxiter, f_rows=f_rows,
-                          b_rows=b_rows, kind=kind)
+    init = pcg_fleet_init(fa, fidx, B, tol, maxiter, f_plan=f_plan,
+                          b_plan=b_plan, kind=kind)
     for dst, src in zip(state, init):
         dst.index_copy_(0, rows, src)
     return init.active
 
 
 def _step_program(fa: FleetArrays, state: FleetPCGState, *, k: int,
-                  f_rows, b_rows, kind: str = "factor") -> FleetPCGState:
-    return pcg_fleet_step(fa, state, k=k, f_rows=f_rows, b_rows=b_rows,
+                  f_plan, b_plan, kind: str = "factor") -> FleetPCGState:
+    return pcg_fleet_step(fa, state, k=k, f_plan=f_plan, b_plan=b_plan,
                           kind=kind)
 
 
@@ -469,6 +469,15 @@ class SolveEngine:
     def _statics(fleet: FactorFleet) -> tuple:
         return (fleet.f_levels, fleet.b_levels, fleet.kind)
 
+    @staticmethod
+    def _plans(fleet: FactorFleet, handles) -> dict:
+        """The bucket's sweep plans cut to the deepest of ``handles`` (the
+        factors of the lanes a call serves; host ints, no device read)."""
+        f_plan, b_plan = fleet.plans(
+            max(h.n_levels_fwd for h in handles),
+            max(h.n_levels_bwd for h in handles))
+        return dict(f_plan=f_plan, b_plan=b_plan)
+
     # -- request lifecycle --------------------------------------------------
     def submit(self, req: SolveRequest) -> None:
         """Queue a request (validates routing and lane fit up front; the
@@ -603,7 +612,7 @@ class SolveEngine:
                 torch.full((j,), req.tol, dtype=torch.float32, device=dev),
                 torch.full((j,), req.maxiter, dtype=torch.int32,
                            device=dev),
-                f_rows=fleet.f_rows, b_rows=fleet.b_rows, kind=fleet.kind)
+                **self._plans(fleet, [handle]), kind=fleet.kind)
             bl.n_active += int(act0.sum())
             self.cols_in += j
             req.admit_tick = self.ticks
@@ -635,10 +644,11 @@ class SolveEngine:
                 fl = bl.fleet
                 self._signature("step", _shapes(fl.arrays, bl.state)
                                 + self._statics(fl))
+                handles = [self.lanes[i].req._handle for i in occ]
                 bl.state = self._step_fn(
                     fl.arrays, bl.state, k=self.iters_per_tick,
-                    f_rows=fl.f_rows, b_rows=fl.b_rows, kind=fl.kind)
-                self._account_sweeps(bl, occ)
+                    **self._plans(fl, handles), kind=fl.kind)
+                self._account_sweeps(bl, handles)
             active = bl.state.active.cpu().numpy()  # (slots,) flags only
             frozen = [i for i in occ if not active[i]]
             bl.n_active = int(active[occ].sum())
@@ -673,7 +683,7 @@ class SolveEngine:
             self.metrics.maybe_sample(self._clock())
         return done
 
-    def _account_sweeps(self, bl: _BucketLanes, occ: List[int]) -> None:
+    def _account_sweeps(self, bl: _BucketLanes, handles) -> None:
         """Host-side mirror of one stepped bucket's trisolve sweep work,
         in the reference's terms so the counters compare with it.
 
@@ -688,20 +698,19 @@ class SolveEngine:
         per-lane bounds elided vs the static bucket ceilings.  The port's
         sweeps read each level's rows and their live slots only, so
         ``sweep_elements`` counts the padded panel the reference sweeps,
-        not the elements the port's kernel reads."""
+        not the elements the port's kernel reads.  ``handles``: the
+        occupied lanes' factors."""
         fl = bl.fleet
         if fl.kind == "factor":
-            live_f = max(self.lanes[i].req._handle.n_levels_fwd
-                         for i in occ)
-            live_b = max(self.lanes[i].req._handle.n_levels_bwd
-                         for i in occ)
+            live_f = max(h.n_levels_fwd for h in handles)
+            live_b = max(h.n_levels_bwd for h in handles)
             self.sweeps_skipped += (fl.f_levels - live_f) \
                 + (fl.b_levels - live_b)
             per_lane = fl.n_pad * (fl.Kf * max(live_f - 1, 0)
                                    + fl.Kb * max(live_b - 1, 0))
         else:
             per_lane = fl.n_pad * fl.Kf
-        self.sweep_elements += len(occ) * per_lane
+        self.sweep_elements += len(handles) * per_lane
 
     def _evict_hopeless(self) -> None:
         """Deadline eviction: a lane is *hopeless* once even an

@@ -21,6 +21,7 @@ from repro_torch.core import trisolve as ttri                  # noqa: E402
 from repro_torch.core.column_math import key_from_seed         # noqa: E402
 from repro_torch.core.solver import _level_lists               # noqa: E402
 from repro_torch.kernels.ops import trisolve_fleet             # noqa: E402
+from repro_torch.kernels.spmv import sweep_plan                # noqa: E402
 
 NAMES = list(jgraphs.SUITE_MICRO) + list(jgraphs.SUITE_TINY)
 SUITE_J = {**jgraphs.SUITE_MICRO, **jgraphs.SUITE_TINY}
@@ -98,11 +99,11 @@ def test_host_schedules_match_reference_and_solve(fleets):
     fwd, bwd = st[i]
     y = torch.zeros((1, fwd.n_pad))
     y[0, :fwd.n] = torch.from_numpy(r)
-    rows, starts, counts = _level_lists(fwd.level_of, fwd.n_levels,
-                                        fwd.n_levels + 1)
+    rows, starts, counts, level_k = _level_lists(
+        fwd.level_of, fwd.row_len, fwd.n_levels, fwd.n_levels + 1)
     got = trisolve_fleet(fwd.cols[None], fwd.vals[None], fwd.row_len[None],
                          rows[None], starts[None],
                          torch.zeros(1, dtype=torch.int32), y,
-                         level_rows=counts)
+                         plan=sweep_plan(counts, level_k))
     host = ttri.solve_levels_np(ht[0], r)
     assert np.allclose(got[0, :fwd.n].numpy(), host, rtol=1e-5, atol=1e-5)

@@ -1,9 +1,12 @@
 """The fleet's triangular solves over level rows, on CPU tensors (the plain
-versions): the level row lists that admission builds, and the level sweep
-against the full-row composition it replaces (``ell_spmv_fleet`` on the
-whole padded panel, then ``where(level_of == lv, y - Y, y)`` per level),
-bit for bit.  The fleet PCG's parity with the reference ``Solver``
-(``tests/test_torch_solver.py``) runs through the same lists."""
+versions): the level row lists and the host sweep plans that admission
+builds, and the level sweep against the full-row composition it replaces
+(``ell_spmv_fleet`` on the whole padded panel, then ``where(level_of ==
+lv, y - Y, y)`` per level), bit for bit; and numpy models of the kernel's
+sum order (its group width per level, its reduce-scatter over lanes)
+against the orders they replace.  The fleet PCG's parity with the
+reference ``Solver`` (``tests/test_torch_solver.py``) runs through the
+same lists."""
 import numpy as np
 import pytest
 
@@ -14,7 +17,7 @@ torch.set_num_threads(1)
 
 from repro_torch.core.column_math import key_from_seed         # noqa: E402
 from repro_torch.core.pcg import fleet_precondition            # noqa: E402
-from repro_torch.core.solver import FactorCache                # noqa: E402
+from repro_torch.core.solver import FactorCache, _level_lists  # noqa: E402
 from repro_torch.core.trisolve import build_schedules_batched  # noqa: E402
 from repro_torch.data import graphs                            # noqa: E402
 from repro_torch.kernels import ops, spmv                      # noqa: E402
@@ -55,6 +58,39 @@ def _halves(fa, levels):
              fa.bstart))
 
 
+def _plan(fl, half):
+    return fl.f_plan if half == 0 else fl.b_plan
+
+
+def _member_stats(h):
+    """A member's (row counts, longest live rows) per level, forward and
+    backward, from its packed schedules built anew."""
+    out = []
+    for sched in build_schedules_batched([h.factor.to_device("cpu")])[0]:
+        _, _, counts, level_k = _level_lists(sched.level_of, sched.row_len,
+                                             sched.n_levels,
+                                             sched.n_levels + 1)
+        out.append((counts, level_k))
+    return out
+
+
+def _plans_from_scratch(stats):
+    """The sweep plans over members of the given ``_member_stats``: each
+    level's largest row count and longest live row, as
+    ``spmv.sweep_plan`` lays them out."""
+    plans = []
+    for half in (0, 1):
+        n = max(s[half][0].size for s in stats)
+        counts = np.zeros(n, np.int64)
+        level_k = np.zeros(n, np.int64)
+        for s in stats:
+            c, k = s[half]
+            counts[:c.size] = np.maximum(counts[:c.size], c)
+            level_k[:k.size] = np.maximum(level_k[:k.size], k)
+        plans.append(spmv.sweep_plan(counts, level_k))
+    return plans
+
+
 def test_fleet_members_differ(fleet):
     fl, hs, _ = fleet
     assert len({h.n for h in hs}) == 3
@@ -66,11 +102,13 @@ def test_fleet_members_differ(fleet):
 def test_level_lists_against_levels(fleet, half):
     """Each member's row list is its rows sorted stably by level, each
     level's start offset counts the rows below it (n_pad past the last
-    level), the host row maxima bound every member's counts, and a row's
-    live length covers exactly its nonzero slots."""
+    level), the host plan's row counts and longest live rows bound every
+    member's, and a row's live length covers exactly its nonzero slots."""
     fl, hs, levels = fleet
     _, cols, vals, level, lens, rows, starts = _halves(fl.arrays, levels)[half]
-    level_rows = fl.f_rows if half == 0 else fl.b_rows
+    plan = _plan(fl, half)
+    bound_rows = dict(zip(plan[:, 0].tolist(), plan[:, 1].tolist()))
+    bound_k = dict(zip(plan[:, 0].tolist(), plan[:, 2].tolist()))
     n_pad = fl.n_pad
     for h in hs:
         f = h.fleet_row
@@ -84,16 +122,22 @@ def test_level_lists_against_levels(fleet, half):
         want_start[0] = 0
         want_start[1:n_levels + 1] = torch.cumsum(counts, 0)
         assert torch.equal(starts[f].long(), want_start)
-        assert all(c <= m for c, m in zip(counts.tolist(), level_rows))
+        for v, c in enumerate(counts.tolist()[1:], start=1):
+            assert c <= bound_rows.get(v, 0)
+            if c:
+                k_max = int(lens[f][lv == v].max())
+                assert k_max <= bound_k[v]
         k = torch.arange(cols.shape[2])[None, :]
         live = k < lens[f].long()[:, None]
         assert bool((vals[f][~live] == 0).all())
         last = (lens[f].long() - 1).clamp(min=0)
         has = lens[f] > 0
         assert bool((vals[f][has, last[has]] != 0).all())
-    assert len(level_rows) == max((h.n_levels_fwd if half == 0
-                                   else h.n_levels_bwd) for h in hs)
-    for lv, m in enumerate(level_rows):
+    depth = max((h.n_levels_fwd if half == 0 else h.n_levels_bwd)
+                for h in hs)
+    assert (fl.f_levels if half == 0 else fl.b_levels) == depth
+    assert int(plan[-1, 0]) == depth - 1
+    for lv, m in bound_rows.items():
         got = max(int(starts[h.fleet_row, lv + 1] - starts[h.fleet_row, lv])
                   for h in hs)
         assert m == got
@@ -122,18 +166,19 @@ FIDX = [2, 0, 2, 1, 3]
 def test_sweep_equals_full_row_composition(fleet, half):
     fl, hs, levels = fleet
     _, cols, vals, level, lens, rows, starts = _halves(fl.arrays, levels)[half]
-    level_rows = fl.f_rows if half == 0 else fl.b_rows
+    plan = _plan(fl, half)
+    n_levels = fl.f_levels if half == 0 else fl.b_levels
     fidx, y = _lanes(fl, hs, FIDX, seed=half)
     got = ops.trisolve_fleet(cols, vals, lens, rows, starts, fidx, y,
-                             level_rows=level_rows)
+                             plan=plan)
     want = ops.trisolve_fleet_masked(cols, vals, fidx, level[fidx.long()], y,
-                                     n_levels=len(level_rows))
+                                     n_levels=n_levels)
     assert torch.equal(_bits(got), _bits(want))
     assert torch.equal(got[4], y[4])             # the empty lane: unchanged
     assert not torch.equal(got[0], y[0])
     # lanes of one factor agree with that factor's lane alone
     alone = ops.trisolve_fleet(cols, vals, lens, rows, starts, fidx[:1],
-                               y[:1], level_rows=level_rows)
+                               y[:1], plan=plan)
     assert torch.equal(_bits(alone[0]), _bits(got[0]))
 
 
@@ -144,14 +189,14 @@ def test_full_row_composition_over_live_slots(fleet, half):
     sweep and the composition over all K slots bit for bit."""
     fl, hs, levels = fleet
     _, cols, vals, level, lens, rows, starts = _halves(fl.arrays, levels)[half]
-    level_rows = fl.f_rows if half == 0 else fl.b_rows
+    n_levels = fl.f_levels if half == 0 else fl.b_levels
     fidx, y = _lanes(fl, hs, FIDX, seed=10 + half)
     got = ops.trisolve_fleet_masked(cols, vals, fidx, level[fidx.long()], y,
-                                    n_levels=len(level_rows), lens=lens)
+                                    n_levels=n_levels, lens=lens)
     full = ops.trisolve_fleet_masked(cols, vals, fidx, level[fidx.long()],
-                                     y, n_levels=len(level_rows))
+                                     y, n_levels=n_levels)
     sweep = ops.trisolve_fleet(cols, vals, lens, rows, starts, fidx, y,
-                               level_rows=level_rows)
+                               plan=_plan(fl, half))
     assert torch.equal(_bits(got), _bits(full))
     assert torch.equal(_bits(got), _bits(sweep))
     # the panel has padding for the live lengths to skip
@@ -165,14 +210,14 @@ def test_plain_sweep_on_tensors_equals_numpy_route(fleet, half):
     bit."""
     fl, hs, levels = fleet
     _, cols, vals, _, lens, rows, starts = _halves(fl.arrays, levels)[half]
-    level_rows = fl.f_rows if half == 0 else fl.b_rows
+    plan = _plan(fl, half)
     fidx, y = _lanes(fl, hs, FIDX, seed=half)
     want = y.clone()
     spmv.ell_sweep_fleet_plain(cols, vals, lens, rows, starts, fidx, want,
-                               level_rows)
+                               plan)
     got = y.clone()
     spmv._sweep_levels(cols, vals, lens, rows, starts, got, fidx.tolist(),
-                       level_rows, spmv._row_sums_torch)
+                       plan, spmv._row_sums_torch)
     assert torch.equal(_bits(got), _bits(want))
     assert not torch.equal(got, y)
 
@@ -184,8 +229,8 @@ def test_one_level_of_the_sweep(fleet):
     fa = fl.arrays
     fidx, y = _lanes(fl, hs, FIDX, seed=5)
     lv = 7
-    only = [0] * len(fl.f_rows)
-    only[lv] = fl.f_rows[lv]
+    only = fl.f_plan[fl.f_plan[:, 0] == lv]
+    assert only.shape == (1, 3)
     got = y.clone()
     spmv.ell_sweep_fleet(fa.fcols, fa.fvals, fa.flen, fa.frows, fa.fstart,
                          fidx, got, only)
@@ -196,16 +241,21 @@ def test_one_level_of_the_sweep(fleet):
 
 
 def test_level_bound_from_lane_levels(fleet):
-    """Lowering the level bound to the lanes' own depth changes nothing."""
+    """Cutting the plan to the lanes' own depth (the host's level count of
+    their factor, as a handle's solve does) changes nothing."""
     fl, hs, _ = fleet
     fa = fl.arrays
-    fidx, y = _lanes(fl, hs, [0, 0], seed=6)
+    h = hs[0]
+    fidx, y = _lanes(fl, hs, [h.fleet_row] * 2, seed=6)
     full = ops.trisolve_fleet(fa.fcols, fa.fvals, fa.flen, fa.frows,
-                              fa.fstart, fidx, y, level_rows=fl.f_rows)
+                              fa.fstart, fidx, y, plan=fl.f_plan)
+    f_cut, _ = h.plans()
     cut = ops.trisolve_fleet(fa.fcols, fa.fvals, fa.flen, fa.frows,
-                             fa.fstart, fidx, y, level_rows=fl.f_rows,
-                             lane_levels=fa.fnlv[fidx.long()])
-    assert hs[0].n_levels_fwd < fl.f_levels
+                             fa.fstart, fidx, y, plan=f_cut)
+    assert h.n_levels_fwd < fl.f_levels
+    assert f_cut.shape[0] < fl.f_plan.shape[0]
+    assert int(f_cut[-1, 0]) < h.n_levels_fwd
+    assert f_cut.flags.c_contiguous
     assert torch.equal(_bits(full), _bits(cut))
 
 
@@ -218,8 +268,9 @@ def test_apply_equals_full_row_apply(fleet, L):
     fa = fl.arrays
     h = hs[1]
     fidx, R = _lanes(fl, hs, [h.fleet_row] * L, seed=L)
-    got = fleet_precondition(fa, fidx, R, f_rows=fl.f_rows,
-                             b_rows=fl.b_rows)
+    f_plan, b_plan = h.plans()
+    got = fleet_precondition(fa, fidx, R, f_plan=f_plan, b_plan=b_plan)
+    assert got.is_contiguous()
     f = fidx.long()
     Y = ops.trisolve_fleet_masked(fa.fcols, fa.fvals, fidx, levels[0][f], R,
                                   n_levels=fl.f_levels,
@@ -238,18 +289,298 @@ def test_sweep_rejects_other_devices(fleet):
     with pytest.raises(ValueError):
         spmv.ell_sweep_fleet(fa.fcols, fa.fvals, fa.flen, fa.frows,
                              fa.fstart, torch.zeros(1, dtype=torch.int32), y,
-                             fl.f_rows)
+                             fl.f_plan)
 
 
 @pytest.mark.parametrize("plain", [False, True], ids=["wrapper", "plain"])
 def test_sweep_rejects_short_starts(fleet, plain):
-    """Levels 1 .. len(level_rows) - 1 read starts[:, lv + 1]: a level
-    list as long as starts' rows is refused (not read one past the row)."""
+    """A plan level lv reads starts[:, lv + 1]: a level at starts' last
+    column is refused (not read one past the row)."""
     fl, _, _ = fleet
     fa = fl.arrays
     fn = spmv.ell_sweep_fleet_plain if plain else spmv.ell_sweep_fleet
     y = torch.zeros((1, fl.n_pad))
+    past = np.array([[fa.fstart.shape[1] - 1, 1, 1]], np.int32)
     with pytest.raises(ValueError):
         fn(fa.fcols, fa.fvals, fa.flen, fa.frows, fa.fstart,
-           torch.zeros(1, dtype=torch.int32), y, [1] * fa.fstart.shape[1])
+           torch.zeros(1, dtype=torch.int32), y, past)
     assert bool((y == 0).all())
+
+
+def test_plan_tracks_live_members():
+    """The host plans that FactorFleet keeps bound every live member's
+    level lists and live lengths, level by level, after admission, a free,
+    the freed row's reuse, growth of the stack (rows and levels) and
+    compaction: they equal a from-scratch maximum over every member ever
+    admitted (running maxima, which a handle's death does not touch); the
+    level ceilings only grow."""
+    c = FactorCache(chunk=16, k_tiering=False, compact_threshold=None,
+                    device="cpu")
+    gs = [graphs.grid2d(a, b, seed=s) for a, b, s in GRAPHS]
+    admitted = []
+
+    def admit(g, key, gid):
+        h = c.factor(g, key_from_seed(key), graph_id=gid)
+        admitted.append(_member_stats(h))
+        return h
+
+    def bounds(plan, counts, level_k):
+        rows = dict(zip(plan[:, 0].tolist(), plan[:, 1].tolist()))
+        k = dict(zip(plan[:, 0].tolist(), plan[:, 2].tolist()))
+        for lv in range(1, counts.size):
+            if counts[lv]:
+                assert counts[lv] <= rows[lv] and level_k[lv] <= k[lv]
+
+    def check(live):
+        fl = live[0].fleet
+        f_want, b_want = _plans_from_scratch(admitted)
+        assert np.array_equal(fl.f_plan, f_want)
+        assert np.array_equal(fl.b_plan, b_want)
+        assert fl.f_plan.dtype == np.int32 and fl.f_plan.flags.c_contiguous
+        for h in live:
+            (fc, fk), (bc, bk) = _member_stats(h)
+            bounds(fl.f_plan, fc, fk)
+            bounds(fl.b_plan, bc, bk)
+        return fl
+
+    h0 = admit(gs[0], 0, "a")
+    h1 = admit(gs[1], 1, "b")
+    fl = check([h0, h1])
+    assert fl.capacity == 2
+    deep = fl.f_levels
+    assert deep > h0.n_levels_fwd
+    c.evict("b")
+    del h1                                    # frees its stack row
+    check([h0])
+    assert fl.f_levels == deep                # ceilings keep every member
+    assert int(fl.f_plan[-1, 0]) == deep - 1  # and so does the plan
+    h2 = admit(gs[2], 2, "c")
+    assert h2.fleet_row == 1                  # the freed row, reused
+    check([h0, h2])
+    h3 = admit(gs[1], 3, "d")
+    h4 = admit(graphs.grid2d(11, 11, seed=4), 4, "e")
+    assert h4.fleet is fl and fl.capacity == 4     # grown from 2
+    check([h0, h2, h3, h4])
+    for gid in ("a", "d", "e"):
+        c.evict(gid)
+    del h0, h3, h4
+    before = fl.generation
+    assert c.compact() == 1 and fl.generation == before + 1
+    assert h2.fleet_row == 0 and fl.capacity == 1
+    check([h2])
+
+
+@pytest.mark.parametrize("half", [0, 1], ids=["fwd", "bwd"])
+def test_plan_route_equals_level_rows_route(fleet, half):
+    """The plain sweep driven by the plan equals the route it replaced (a
+    loop over every level of the ceiling, skipping those whose bucket
+    row maximum is 0) bit for bit."""
+    fl, hs, levels = fleet
+    _, cols, vals, _, lens, rows, starts = _halves(fl.arrays, levels)[half]
+    fidx, y = _lanes(fl, hs, FIDX, seed=20 + half)
+    got = y.clone()
+    spmv.ell_sweep_fleet_plain(cols, vals, lens, rows, starts, fidx, got,
+                               _plan(fl, half))
+    # the level_rows route: per-level row maxima over the members, one
+    # entry per level of the ceiling
+    level_rows = np.diff(starts.numpy(), axis=1).max(0)
+    level_rows = level_rows[:fl.f_levels if half == 0 else fl.b_levels]
+    want = y.clone().numpy()
+    c, v, ln, rw, st = (t.numpy() for t in (cols, vals, lens, rows, starts))
+    for lv in range(1, len(level_rows)):
+        if not level_rows[lv]:
+            continue
+        for lane, f in enumerate(fidx.tolist()):
+            lo, hi = int(st[f, lv]), int(st[f, lv + 1])
+            if hi <= lo:
+                continue
+            r = rw[f, lo:hi]
+            k = int(ln[f, r].max())
+            if k:
+                want[lane, r] = want[lane, r] - spmv._row_sums_np(
+                    c[f, r, :k], v[f, r, :k], want[lane])
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
+def test_apply_reads_no_level_counts(fleet):
+    """An apply runs from the host plans alone: the stack's device level
+    counts (``fnlv`` / ``bnlv``, which the solve once read back to bound
+    its levels) are not touched, and the result is the same bit for bit
+    as the lanes' own bound gives."""
+    fl, hs, levels = fleet
+    fa = fl.arrays
+    fidx, R = _lanes(fl, hs, FIDX, seed=30)
+    want = fleet_precondition(fa, fidx, R, f_plan=fl.f_plan,
+                              b_plan=fl.b_plan)
+    blind = fa._replace(fnlv=None, bnlv=None)
+    got = fleet_precondition(blind, fidx, R, f_plan=fl.f_plan,
+                             b_plan=fl.b_plan)
+    assert torch.equal(_bits(got), _bits(want))
+    f = fidx.long()
+    Y = ops.trisolve_fleet_masked(fa.fcols, fa.fvals, fidx, levels[0][f], R,
+                                  n_levels=fl.f_levels,
+                                  lane_levels=fa.fnlv[f])
+    old = ops.trisolve_fleet_masked(fa.bcols, fa.bvals, fidx, levels[1][f],
+                                    Y * fa.dinv[f], n_levels=fl.b_levels,
+                                    lane_levels=fa.bnlv[f])
+    assert torch.equal(_bits(got), _bits(old))
+
+
+@pytest.mark.parametrize("half", [0, 1], ids=["fwd", "bwd"])
+def test_interleaved_y_equals_lane_major(fleet, half):
+    """The sweep on an interleaved working vector (a column's lanes side by
+    side) gives the lane-major sweep's bits and keeps its layout."""
+    fl, hs, levels = fleet
+    _, cols, vals, _, lens, rows, starts = _halves(fl.arrays, levels)[half]
+    fidx, y = _lanes(fl, hs, FIDX, seed=40 + half)
+    want = ops.trisolve_fleet(cols, vals, lens, rows, starts, fidx, y,
+                              plan=_plan(fl, half))
+    yi = ops.interleaved(y)
+    assert yi.stride() == (1, len(FIDX)) and torch.equal(yi, y)
+    got = ops.trisolve_fleet(cols, vals, lens, rows, starts, fidx, yi,
+                             plan=_plan(fl, half))
+    assert got.stride() == yi.stride()
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(yi, y)                  # the input is not modified
+
+
+@pytest.mark.parametrize("bad", ["falling", "level_k", "level0", "dtype"])
+def test_sweep_rejects_bad_plans(fleet, bad):
+    """A plan whose levels do not rise from 1, whose longest live row
+    exceeds K, or that is not int32 is refused before any work."""
+    fl, _, _ = fleet
+    fa = fl.arrays
+    plan = fl.f_plan.copy()
+    if bad == "falling":
+        plan = np.ascontiguousarray(plan[::-1])
+    elif bad == "level_k":
+        plan[0, 2] = fa.fcols.shape[2] + 1
+    elif bad == "level0":
+        plan[0, 0] = 0
+    else:
+        plan = plan.astype(np.int64)
+    y = torch.zeros((1, fl.n_pad))
+    with pytest.raises(ValueError):
+        spmv.ell_sweep_fleet(fa.fcols, fa.fvals, fa.flen, fa.frows,
+                             fa.fstart, torch.zeros(1, dtype=torch.int32), y,
+                             plan)
+
+
+def _fma(a, b, c):
+    """float32 fused multiply-add, modeled in float64: the product of two
+    float32 values is exact there; the sum is rounded to float64, then to
+    float32 (as the plain versions compute it)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _butterfly(part):
+    """The fixed xor butterfly over the last axis (a power of two wide):
+    at offsets G/2 .. 1 each thread adds its partner's value (own +
+    partner, float32); every thread ends with the sum."""
+    G = part.shape[-1]
+    idx = np.arange(G)
+    off = G // 2
+    while off:
+        part = (part + part[..., idx ^ off]).astype(np.float32)
+        off //= 2
+    return part
+
+
+def _kernel_row_sums(v, x, lens, G):
+    """The kernel's order for rows ``v`` / gathered ``x`` ``[rows, S]``:
+    thread g of a G-wide group sums the slots g, g + G, ... below each
+    row's ``lens`` by fused multiply-adds from +0, then the butterfly;
+    returns thread 0's sum."""
+    rows, S = v.shape
+    S2 = -(-S // G) * G
+    live = np.arange(S2)[None, :] < lens[:, None]
+    vp = np.zeros((rows, S2), np.float32)
+    xp = np.zeros((rows, S2), np.float32)
+    vp[:, :S], xp[:, :S] = v, x
+    part = np.zeros((rows, G), np.float32)
+    for j in range(S2 // G):
+        s = slice(j * G, (j + 1) * G)
+        part = np.where(live[:, s], _fma(vp[:, s], xp[:, s], part), part)
+    return _butterfly(part)[:, 0]
+
+
+@pytest.mark.parametrize("half", [0, 1], ids=["fwd", "bwd"])
+def test_sum_order_at_level_width_equals_panel_width(fleet, half):
+    """A numpy model of the kernel's sum order: each row's live slots at
+    G = group_width(level_k), level_k the plan's longest live row, equal
+    all K slots at G = group_width(K) bit for bit, on every level of
+    every member."""
+    fl, hs, levels = fleet
+    _, cols, vals, _, lens, rows, starts = _halves(fl.arrays, levels)[half]
+    plan = _plan(fl, half)
+    K = cols.shape[2]
+    rng = np.random.default_rng(50 + half)
+    c, v, ln, rw, st = (t.numpy() for t in (cols, vals, lens, rows, starts))
+    widths = set()
+    for h in hs:
+        f = h.fleet_row
+        x = rng.normal(size=fl.n_pad).astype(np.float32)
+        for lv, _, level_k in plan.tolist():
+            r = rw[f, st[f, lv]:st[f, lv + 1]]
+            if not r.size:
+                continue
+            G = spmv.group_width(level_k)
+            widths.add(G)
+            narrow = _kernel_row_sums(v[f, r], x[c[f, r]], ln[f, r], G)
+            full = _kernel_row_sums(v[f, r], x[c[f, r]],
+                                    np.full(r.size, K), spmv.group_width(K))
+            assert np.array_equal(narrow.view(np.int32), full.view(np.int32))
+    # the levels exercise narrow groups as well as the panel's
+    assert len(widths) >= 2 and min(widths) < spmv.group_width(K)
+
+
+def _reduce_scatter(acc, G):
+    """A model of the kernel's group_reduce: ``acc`` ``[G, NB]`` (thread,
+    lane).  Halving steps at offsets G/2, G/4, ... while the group has
+    offsets and more than one lane is held (each thread keeps the half of
+    its lanes named by its offset bit and adds its partner's values of
+    them: own + partner), then the butterfly on one value.  Returns
+    {(thread, lane): sum} of the sums each thread holds."""
+    NB = acc.shape[1]
+    held = [list(range(NB)) for _ in range(G)]
+    vals = [list(acc[g]) for g in range(G)]
+    off = G // 2
+    while off and len(held[0]) > 1:
+        new_h, new_v = [], []
+        for g in range(G):
+            p = g ^ off
+            half = len(held[g]) // 2
+            keep = slice(half, None) if g & off else slice(0, half)
+            lanes = held[g][keep]
+            mine = dict(zip(held[g], vals[g]))
+            theirs = dict(zip(held[p], vals[p]))
+            new_h.append(lanes)
+            new_v.append([np.float32(mine[b] + theirs[b]) for b in lanes])
+        held, vals, off = new_h, new_v, off // 2
+    while off:
+        vals = [[np.float32(vals[g][0] + vals[g ^ off][0])]
+                for g in range(G)]
+        off //= 2
+    return {(g, b): x for g in range(G) for b, x in zip(held[g], vals[g])}
+
+
+@pytest.mark.parametrize("NB", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 32])
+def test_reduce_scatter_model_equals_butterfly(NB, G):
+    """The lanes' shared reduction: every lane's sum, in every thread that
+    holds it, equals that lane's own butterfly bit for bit, and every
+    lane is held by some thread (the kernel's writer)."""
+    rng = np.random.default_rng(NB * 100 + G)
+    acc = (rng.normal(size=(G, NB)) * 10.0 ** rng.integers(-3, 4, (G, NB))
+           ).astype(np.float32)
+    got = _reduce_scatter(acc, G)
+    want = _butterfly(acc.T.copy())            # [NB, G]: each lane alone
+    assert {b for _, b in got} == set(range(NB))
+    lg = G.bit_length() - 1
+    steps = min(lg, NB.bit_length() - 1)
+    held = NB >> steps
+    for (g, b), x in got.items():
+        assert np.float32(x).view(np.int32) == want[b, g].view(np.int32)
+        # the lanes a thread holds, as the kernel computes them
+        first = (g >> (lg - steps)) * held
+        assert first <= b < first + held

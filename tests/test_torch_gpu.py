@@ -244,47 +244,105 @@ def test_ell_sweep_fleet_kernel(dev, half):
         getattr(fa, p + name) for name in ("cols", "vals", "len", "rows",
                                            "start"))
     level = levels[0 if p == "f" else 1]
-    level_rows = fl.f_rows if p == "f" else fl.b_rows
+    plan = fl.f_plan if p == "f" else fl.b_plan
+    n_levels = fl.f_levels if p == "f" else fl.b_levels
     fidx = torch.tensor([2, 0, 2, 1, 3], dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     y0 = torch.randn((5, fl.n_pad), generator=gen, device=dev)
     y = y0.clone()
     before = runtime.LAUNCHES.get("ell_sweep_fleet", 0)
-    for lv in range(1, len(level_rows)):
-        only = [0] * len(level_rows)
-        only[lv] = level_rows[lv]
+    for e in range(plan.shape[0]):
+        only = plan[e:e + 1]
         want = y.clone()
         spmv.ell_sweep_fleet_plain(cols, vals, lens, rows, starts, fidx,
                                    want, only)
         spmv.ell_sweep_fleet(cols, vals, lens, rows, starts, fidx, y, only)
         assert torch.allclose(y, want, rtol=1e-5, atol=1e-5)
         y = want
-    launched = sum(1 for m in level_rows[1:] if m)
-    assert runtime.LAUNCHES["ell_sweep_fleet"] == before + launched
+    # each call: the lane grouping, then its one level
+    assert runtime.LAUNCHES["ell_sweep_fleet"] == before + 2 * plan.shape[0]
     got = ops.trisolve_fleet(cols, vals, lens, rows, starts, fidx, y0,
-                             level_rows=level_rows)
+                             plan=plan)
     masked = ops.trisolve_fleet_masked(cols, vals, fidx, level[fidx.long()],
-                                       y0, n_levels=len(level_rows))
+                                       y0, n_levels=n_levels)
     assert torch.equal(got.view(torch.int32), masked.view(torch.int32))
     assert torch.equal(got[4], y0[4])            # the fleet's empty row
     alone = ops.trisolve_fleet(cols, vals, lens, rows, starts, fidx[:1],
-                               y0[:1].contiguous(), level_rows=level_rows)
+                               y0[:1].contiguous(), plan=plan)
     assert torch.equal(alone[0].view(torch.int32), got[0].view(torch.int32))
+    inter = ops.trisolve_fleet(cols, vals, lens, rows, starts, fidx,
+                               ops.interleaved(y0), plan=plan)
+    assert torch.equal(inter.view(torch.int32), got.view(torch.int32))
 
 
 def test_ell_sweep_fleet_rejects_short_starts(dev):
-    """Levels 1 .. len(level_rows) - 1 read starts[:, lv + 1]: a level
-    list as long as starts' rows is refused before any launch."""
+    """A plan level lv reads starts[:, lv + 1]: a level at starts' last
+    column is refused before any launch, as are more lanes than one call
+    takes and a y of neither layout."""
     fl, _hs, _ = _sweep_fleet(dev)
     fa = fl.arrays
     fidx = torch.zeros(1, dtype=torch.int32, device=dev)
     y = torch.zeros((1, fl.n_pad), device=dev)
     before = runtime.LAUNCHES.get("ell_sweep_fleet", 0)
+    args = (fa.fcols, fa.fvals, fa.flen, fa.frows, fa.fstart)
     with pytest.raises(ValueError):
-        spmv.ell_sweep_fleet(fa.fcols, fa.fvals, fa.flen, fa.frows,
-                             fa.fstart, fidx, y,
-                             [1] * fa.fstart.shape[1])
+        spmv.ell_sweep_fleet(*args, fidx, y, np.array(
+            [[fa.fstart.shape[1] - 1, 1, 1]], np.int32))
+    many = spmv.FLEET_MAX_LANES + 1
+    with pytest.raises(ValueError):
+        spmv.ell_sweep_fleet(*args, torch.zeros(many, dtype=torch.int32,
+                                                device=dev),
+                             torch.zeros((many, fl.n_pad), device=dev),
+                             fl.f_plan)
+    with pytest.raises(ValueError):
+        spmv.ell_sweep_fleet(*args, torch.zeros(2, dtype=torch.int32,
+                                                device=dev),
+                             torch.zeros((2, 2 * fl.n_pad), device=dev)[:, ::2],
+                             fl.f_plan)
     assert runtime.LAUNCHES.get("ell_sweep_fleet", 0) == before
+
+
+@pytest.mark.parametrize("layout", ["lane-major", "interleaved"])
+def test_ell_sweep_fleet_lanes_alone_and_two_factors(dev, layout):
+    """8 lanes of two factors interleaved in fidx, one apply's both
+    solves: every lane bitwise equal to itself alone and to ell_sweep of
+    its factor's level-sorted schedule, and the whole solve bitwise equal
+    to the full-row composition."""
+    from repro_torch.core.trisolve import build_schedules_device
+    from repro_torch.kernels import ops
+    fl, hs, levels = _sweep_fleet(dev)
+    fa = fl.arrays
+    a, b = hs[1].fleet_row, hs[2].fleet_row
+    fidx = torch.tensor([a, b, a, b, b, a, a, b], dtype=torch.int32,
+                        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    y0 = torch.randn((8, fl.n_pad), generator=gen, device=dev)
+    for p, plan in (("f", fl.f_plan), ("b", fl.b_plan)):
+        args = tuple(getattr(fa, p + name) for name in
+                     ("cols", "vals", "len", "rows", "start"))
+        y = ops.interleaved(y0) if layout == "interleaved" else y0
+        got = ops.trisolve_fleet(*args, fidx, y, plan=plan)
+        level = levels[0 if p == "f" else 1][fidx.long()]
+        masked = ops.trisolve_fleet_masked(
+            args[0], args[1], fidx, level, y0,
+            n_levels=fl.f_levels if p == "f" else fl.b_levels)
+        assert torch.equal(got.view(torch.int32), masked.view(torch.int32))
+        for lane in range(8):
+            alone = ops.trisolve_fleet(*args, fidx[lane:lane + 1],
+                                       y0[lane:lane + 1].contiguous(),
+                                       plan=plan)
+            assert torch.equal(alone[0].view(torch.int32),
+                               got[lane].view(torch.int32))
+        for h in (hs[1], hs[2]):
+            # the library path's schedule of the same factor (its backward
+            # solve in flipped index space): ell_sweep's lane
+            sched = build_schedules_device(h.factor.to_device(dev))[
+                0 if p == "f" else 1]
+            lane = int((fidx == h.fleet_row).nonzero()[0, 0])
+            lib = ops.trisolve_panels(sched, y0[lane, :h.n].contiguous(),
+                                      flip=p == "b")
+            assert torch.equal(lib.view(torch.int32),
+                               got[lane, :h.n].view(torch.int32))
 
 
 def test_wrappers_reject_bad_input(dev):

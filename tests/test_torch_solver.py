@@ -71,7 +71,7 @@ def test_stepped_equals_one_shot_bitwise(cache):
     B = torch.zeros((3, h.n_pad))
     B[:, :h.n] = torch.from_numpy(_rhs(h.n, 3, seed=4))
     fidx = torch.full((3,), h.fleet_row, dtype=torch.int32)
-    kw = dict(f_rows=h.fleet.f_rows, b_rows=h.fleet.b_rows)
+    kw = dict(f_plan=h.fleet.f_plan, b_plan=h.fleet.b_plan)
     tol = torch.full((3,), 1e-6)
     mi = torch.full((3,), 200, dtype=torch.int32)
     one = tpcg.pcg_fleet_solve(fa, fidx, B, tol, mi, **kw)
@@ -94,7 +94,7 @@ def test_lane_independence_bitwise(cache):
     rows = [h.fleet_row for h in mates]
     rhs = [torch.from_numpy(_rhs(h.n, 1, seed=9 + i)[0])
            for i, h in enumerate(mates)]
-    kw = dict(f_rows=fleet.f_rows, b_rows=fleet.b_rows)
+    kw = dict(f_plan=fleet.f_plan, b_plan=fleet.b_plan)
 
     def run(lanes):
         B = torch.zeros((len(lanes), n_pad))
