@@ -68,9 +68,10 @@ to a plain version while a GPU is present):
            laplacian_pcg_batched (the same 8 rhs as the main path), tol
            1e-6, maxiter 500.  Every lane must converge with a true residual
            below 1e-4, the level sweeps ell_sweep and ell_sweep_multi must
-           have launched and the full-row ell_spmv and ell_spmv_multi must
-           not, and lane 0 of the block, solved alone afterwards, must take
-           the same iterates bit for bit.  Then one 1-rhs and one 8-rhs
+           have launched once per triangular solve (2 launches an apply,
+           1 + iterations applies a solve) and the full-row ell_spmv and
+           ell_spmv_multi not at all, and lane 0 of the block, solved alone
+           afterwards, must take the same iterates bit for bit.  Then one 1-rhs and one 8-rhs
            apply of the path's preconditioner against the per-level
            full-row composition the sweeps replaced
            (ops.trisolve_panels_full: the slab kernel over each whole
@@ -85,8 +86,9 @@ to a plain version while a GPU is present):
            on the same slab, and each ell_spmv_multi column bitwise equal to
            ell_spmv of that column.  ell_sweep and ell_sweep_multi (B = 8
            and 11) at the largest, an average and a small ragged forward
-           level, one level each: relative error <= 1e-5 vs their plain
-           versions; ell_sweep bitwise equal to ell_sweep_fleet's lane (a
+           level, one level each (one launch a call): relative error <=
+           1e-5 vs their plain versions; ell_sweep bitwise equal to
+           ell_sweep_fleet's lane (a
            row-indexed copy of the slab at the panel's full width) and to
            ell_spmv + commit, each ell_sweep_multi column bitwise equal to
            ell_sweep of that column.
@@ -119,7 +121,14 @@ to a plain version while a GPU is present):
            lane grouping);
            ell_sweep and ell_sweep_multi, 8 columns, at the library
            path's largest and an average forward level, against
-           torch.sparse.mm on that level's live slots in CSR),
+           torch.sparse.mm on that level's live slots in CSR, and one
+           whole forward triangular solve of each, 1 and 8 columns,
+           bitwise equal to the full-row composition and within
+           SOLVE_PLAIN_TOL of its plain version, against
+           torch.triangular_solve on the factor's lower part in CSR
+           (cuSPARSE's triangular solve), beside its bytes bound and the
+           design's measured chain time (its levels times one level of
+           the walk over a 4,096-level path; not a limit of the card)),
            beside the least time the card
            could take (bytes over 3.35 TB/s, or operations over the peak
            rate, whichever is larger: fp32's 67 TFLOP/s for the solver's
@@ -130,7 +139,8 @@ to a plain version while a GPU is present):
            wrapper's host work when that outlasts the kernel); and one
            preconditioner apply of each path on the same factor, with its
            device busy time from a torch.profiler trace of one apply, its
-           launches and its sweeps' C calls (2 an apply on either path).
+           launches and its sweeps' C calls (2 an apply on either path;
+           the library path's 2 launches an apply).
            sample_clique at the rows of the 64^3 final attempt's middle
            round (R = 256, W = 512) and sample_clique_round on the same
            round (the state restored before each call, outside the timed
@@ -262,7 +272,8 @@ to a plain version while a GPU is present):
            sharded_pcg and laplacian_pcg (tol 1e-6, maxiter 500), timed
            in the order A B B A, the first of each checked: x,
            iterations and relres bitwise equal, one all-reduce an
-           iteration, the same ell_sweep launches and no other kernel;
+           iteration, the same ell_sweep launches (2 an apply) and no
+           other kernel;
            then batched_factorize of keys 0 and 1 (chunk 256, fill_slack
            256: the strict run's final slack, W = 512): key 0's slice,
            compacted by ensemble_factor, equal to [main]'s factor bit for
@@ -280,7 +291,8 @@ to a plain version while a GPU is present):
            equal across ranks, batched_factorize of the 8 keys (2 a rank)
            with every rank's state equal and each key's compacted slice
            equal to the parent's single-device factor bit for bit;
-           sample_clique_round and ell_sweep launched on every rank.  (3)
+           sample_clique_round and ell_sweep (2 launches an apply)
+           launched on every rank.  (3)
            examples/torch_quickstart.py, torch_sparsify.py and
            torch_spectral_embedding.py through main() on the card at their
            own sizes: every solve converged, sample_clique_round and the
@@ -390,8 +402,9 @@ the attention library's SASS, where cuobjdump exists.
 
 The last three lines are the kernel table as JSON (one row per kernel,
 two for sample_clique — the standalone rows, then the fused round —,
-two for each level sweep — ell_sweep_fleet, ell_sweep and
-ell_sweep_multi: the largest forward level, then an average one —,
+two for ell_sweep_fleet — the largest forward level, then an average
+one —, three for ell_sweep and for ell_sweep_multi — those two levels,
+then one whole forward solve —,
 two for flash_attention — the qwen3-14b shape, then the
 recurrentgemma-2b one — and three for the full-row ell_spmv_fleet: [main]'s
 forward panel over flen with [main]'s launches (0) and comparison launches,
@@ -422,9 +435,10 @@ BF16_TC_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # a row's optional keys: launches made only to compare a kernel with what
-# replaced it on the main path, apart from the main path's own count; and
-# the kernel's launches on [dist]'s world-1 path
-EXTRA_KEYS = ("comparison_launches", "dist_launches")
+# replaced it on the main path, apart from the main path's own count; the
+# kernel's launches on [dist]'s world-1 path; and a whole solve's chain
+# time (its levels times the walk's measured hand-off)
+EXTRA_KEYS = ("comparison_launches", "dist_launches", "chain_ms")
 
 
 def log(msg: str) -> None:
@@ -1247,7 +1261,9 @@ def phase_library(dev, main):
         f"path {main['t_solve8']:.2f}s, {m8.min()}..{m8.max()}) max relres="
         f"{float(r8.relres.max()):.3e}")
     log(f"[library] launches: {launches}; ell_sweep per 1-rhs apply "
-        f"{launches.get('ell_sweep', 0) / (it1 + 1):.1f}")
+        f"{launches.get('ell_sweep', 0) / (it1 + 1):.1f}, ell_sweep_multi "
+        f"per 8-rhs apply "
+        f"{launches.get('ell_sweep_multi', 0) / (it8.max() + 1):.1f}")
     log("[library] lane 0 of the 8-rhs solve == the same rhs solved alone, "
         "bit for bit (x and iterations)")
     check(bool(r1.converged) and bool(r8.converged.all()),
@@ -1259,9 +1275,13 @@ def phase_library(dev, main):
         rr = true_relres(g, x, b)
         check(rr < 1e-4, f"library path: true residual {rr:.2e} of a "
                          f"converged lane")
-    for name in ("ell_sweep", "ell_sweep_multi"):
-        check(launches.get(name, 0) > 0,
-              f"library path never launched the {name} kernel")
+    # one launch per triangular solve: two an apply, and a PCG applies
+    # its preconditioner once before its first iteration and once in each
+    for name, applies in (("ell_sweep", it1 + 1),
+                          ("ell_sweep_multi", int(it8.max()) + 1)):
+        check(launches.get(name, 0) == 2 * applies,
+              f"library path: {launches.get(name, 0)} launches of {name}, "
+              f"not 2 for each of its {applies} applies")
     for name in ("ell_spmv", "ell_spmv_multi"):
         check(launches.get(name, 0) == 0,
               f"library path launched the full-row {name} kernel")
@@ -1419,20 +1439,22 @@ def phase_slabs(dev, lib):
 
 def sweep_slabs(dev, fwd):
     """ell_sweep and ell_sweep_multi at the largest, an average and a small
-    ragged forward level, one level alone each: against their plain
+    ragged forward level, one level alone each (one launch a call, its
+    walk tables built for the call): against their plain
     versions (relative error <= 1e-5 over the level's rows), ell_sweep
     bitwise against ell_sweep_fleet's lane and against ell_spmv followed
     by y[rows] -= Y, and each ell_sweep_multi column (B = 8 and B = 11)
     bitwise against ell_sweep of that column.  Returns each kernel's
     largest |error| against its plain version."""
     import torch
-    from repro_torch.kernels import spmv
+    from repro_torch.kernels import runtime, spmv
     gen = torch.Generator(device=dev).manual_seed(2)
     args = (fwd.cols, fwd.vals, fwd.row_len, fwd.row_ids)
     worst = {"ell_sweep": 0.0, "ell_sweep_multi": 0.0}
     for which in ("largest", "average", "ragged"):
         lv = pick_level(fwd, which)
         plan = level_plan(fwd, lv)
+        walk = spmv.sweep_walk(plan, dev)
         lo, hi = int(fwd.row_ptr[lv]), int(fwd.row_ptr[lv + 1])
         rows = fwd.row_ids[lo:hi].long()
         other = torch.ones(fwd.n, dtype=torch.bool, device=dev)
@@ -1442,7 +1464,10 @@ def sweep_slabs(dev, fwd):
             y0 = torch.randn((fwd.n,) if B is None else (fwd.n, B),
                              generator=gen, device=dev)
             got, want = y0.clone(), y0.clone()
-            getattr(spmv, name)(*args, got, plan)
+            before = runtime.LAUNCHES.get(name, 0)
+            getattr(spmv, name)(*args, got, walk)
+            check(runtime.LAUNCHES.get(name, 0) == before + 1,
+                  f"{name} {which} level {lv}: not one launch")
             spmv.ell_sweep_plain(*args, want, plan)
             torch.cuda.synchronize()
             err = float((got[rows] - want[rows]).abs().max())
@@ -1469,7 +1494,7 @@ def sweep_slabs(dev, fwd):
             else:
                 for b in range(B):
                     col = y0[:, b].contiguous()
-                    spmv.ell_sweep(*args, col, plan)
+                    spmv.ell_sweep(*args, col, walk)
                     check(bitwise_equal(got[:, b], col),
                           f"ell_sweep_multi B={B} column {b} differs from "
                           f"ell_sweep at the {which} forward level {lv}")
@@ -1712,8 +1737,9 @@ def slab_rows_timing(dev, slabs, lib):
 def sweep_rows_timing(dev, slabs, lib):
     """Timing rows of ell_sweep and ell_sweep_multi (8 columns) at the
     library path's largest and an average forward level, one level alone
-    per launch, with torch.sparse.mm on the level's live slots in CSR as
-    the library call (the product alone, without the commit)."""
+    per launch (its walk tables built beforehand), with torch.sparse.mm on
+    the level's live slots in CSR as the library call (the product alone,
+    without the commit)."""
     import torch
     from repro_torch.kernels import spmv
     fwd = slabs["fwd"]
@@ -1737,12 +1763,13 @@ def sweep_rows_timing(dev, slabs, lib):
             csr = torch.sparse_csr_tensor(crow, c[live_mask].long(),
                                           v[live_mask], size=(R, n),
                                           check_invariants=False)
+        walk = spmv.sweep_walk(plan, dev)
         for name, B in (("ell_sweep", 1), ("ell_sweep_multi", 8)):
             kernel = getattr(spmv, name)
             y = torch.randn((n,) if B == 1 else (n, B), device=dev)
             y0 = y.clone()
             yp = y.clone()
-            kernel(*args, y, plan)
+            kernel(*args, y, walk)
             y_lib = torch.sparse.mm(csr, y0.reshape(n, B)).reshape(R, B)
             torch.cuda.synchronize()
             s_k = (y0[rows] - y[rows]).reshape(R, B)
@@ -1753,7 +1780,7 @@ def sweep_rows_timing(dev, slabs, lib):
             lib_rel = float((s_k - y_lib).abs().max()) / scale
             check(lib_rel <= 1e-4, f"torch.sparse.mm disagrees with {name} "
                                    f"at the {which} level ({lib_rel:.2e})")
-            kern = lambda: kernel(*args, y, plan)                # noqa: E731
+            kern = lambda: kernel(*args, y, walk)                # noqa: E731
             plain = lambda: spmv.ell_sweep_plain(*args, yp, plan)  # noqa: E731
             y_in = y0.reshape(n, B)
             lib_call = lambda: torch.sparse.mm(csr, y_in)        # noqa: E731
@@ -1779,6 +1806,221 @@ def sweep_rows_timing(dev, slabs, lib):
                       f"level_k={k} K={fwd.K} live_slots={live} "
                       f"y_bytes={y_bytes}",
                 device_ms=device_ms))
+    log_rows(rows_out)
+    return rows_out
+
+
+CHAIN_LEVELS = 4096
+# a whole forward solve against its plain version on the card, relative to
+# its largest value: the two sum each row in another order (the kernel in
+# ell_row.cuh's, the plain version left to right), and a level's rounding
+# feeds every later level
+SOLVE_PLAIN_TOL = 1e-5
+
+
+def chain_schedule(dev, levels: int = CHAIN_LEVELS, width: int = 1):
+    """The forward schedule of a path, row i reading row i - 1: ``levels``
+    plan entries of one row each, so a sweep over it is a chain of level
+    hand-offs and little else.  ``width`` > 1: each row of the path also
+    reads ``width`` - 1 rows of level 0 (seeded), so its rows hold
+    ``width`` live slots."""
+    import torch
+    from repro_torch.core.trisolve import _schedule_from_edges_device
+    n0 = width - 1                      # level-0 rows before the path
+    i = torch.arange(n0 + 1, n0 + levels + 1, device=dev)
+    dst, src = [i], [i - 1]
+    if n0:
+        gen = torch.Generator(device="cpu").manual_seed(width)
+        far = torch.argsort(torch.rand((levels, n0), generator=gen),
+                            dim=1).to(dev)
+        dst.append(i.repeat_interleave(n0))
+        src.append(far.reshape(-1))
+    dst, src = torch.cat(dst), torch.cat(src)
+    return _schedule_from_edges_device(
+        n0 + levels + 1, dst, src,
+        torch.full((dst.numel(),), 0.5 / width, device=dev))
+
+
+def piece_walk(sched):
+    """A SweepWalk of ``sched``'s plan in pieces only (each entry's rows in
+    pieces of one block, no runs), so every level waits on the done
+    counter of the one before."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import spmv
+    _, entries = spmv.walk_items(sched.plan)
+    pieces = []
+    for e in range(entries.shape[0]):      # one entry alone makes no run
+        items, _ = spmv.walk_items(np.ascontiguousarray(entries[e:e + 1, :3]))
+        items[:, 2] = e
+        pieces.append(items)
+    dev = sched.cols.device
+    items = np.concatenate(pieces) if pieces else np.zeros((0, 4), np.int32)
+    return spmv.SweepWalk(plan=sched.plan,
+                          items=torch.from_numpy(items).to(dev),
+                          entries=torch.from_numpy(entries).to(dev))
+
+
+def run_levels(sched) -> int:
+    """Levels of ``sched``'s walk that follow another level of their run
+    inside one block (each hands off by __syncthreads, not the done
+    counter)."""
+    items = sched.walk.items.cpu().numpy()
+    runs = items[items[:, 3] < 0]
+    return int((runs[:, 1] - 1).sum())
+
+
+def chain_per_level_us(dev, chain, B: int, pieces: bool = False) -> dict:
+    """One sweep over ``chain`` at ``B`` columns (1: ell_sweep), per level
+    in µs: the walk kernel's device time (``kernel``), the call's device
+    busy time (``busy``) and its CUDA-event time (``event``).  ``pieces``:
+    with walk tables of pieces only (piece_walk), so each level hands off
+    through the done counter, not inside a run."""
+    import torch
+    from repro_torch.kernels import spmv
+    kernel = spmv.ell_sweep if B == 1 else spmv.ell_sweep_multi
+    y = torch.ones((chain.n,) if B == 1 else (chain.n, B), device=dev)
+    walk = piece_walk(chain) if pieces else chain.walk
+
+    def fn():
+        y.fill_(1.0)
+        kernel(chain.cols, chain.vals, chain.row_len, chain.row_ids, y, walk)
+    levels = chain.plan.shape[0]
+    k_ms = kernel_device_ms(fn, lambda: None, "walk_kernel", n=5)
+    busy, _ = device_busy_ms(fn)
+    return dict(kernel=None if k_ms is None else k_ms * 1e3 / levels,
+                busy=None if busy is None else busy * 1e3 / levels,
+                event=time_ms(fn, reps=5) * 1e3 / levels)
+
+
+def solve_bytes(sched, B: int) -> int:
+    """Bytes one whole triangular solve over ``sched`` must move: the live
+    slots (index and value) and each swept row's id and length read once,
+    y read once and the swept rows of y written once."""
+    live = int(sched.row_len.sum())
+    rows = int(sched.plan[:, 1].sum())
+    return live * 8 + rows * 8 + sched.n * B * 4 + rows * B * 4
+
+
+def lower_csr(sched):
+    """The strictly lower part N of a forward schedule's unit-triangular
+    matrix I + N (its sweep solves (I + N) y = b) in CSR, in vertex order:
+    row ``row_ids[r]`` holds the live (col, val) slots of slab row ``r``.
+    Checks that every live column precedes its row, so that
+    torch.triangular_solve(upper=False) solves the same system."""
+    import torch
+    n, K = sched.cols.shape
+    live = (torch.arange(K, device=sched.cols.device)[None, :]
+            < sched.row_len[:, None])
+    rows = sched.row_ids.long()[:, None].expand(-1, K)[live]
+    cols = sched.cols[live].long()
+    check(bool((cols < rows).all()), "the forward factor is not strictly "
+                                     "lower triangular in vertex order")
+    return torch.sparse_coo_tensor(torch.stack((rows, cols)),
+                                   sched.vals[live], (n, n)
+                                   ).coalesce().to_sparse_csr()
+
+
+def sweep_solve_timing(dev, slabs, lib):
+    """Timing rows of one whole forward triangular solve of the library
+    path (ops.trisolve_panels: ell_sweep at 1 column, ell_sweep_multi at
+    8), each bitwise equal to the full-row composition and within
+    SOLVE_PLAIN_TOL of its plain version run on the card.  The library
+    call is torch.triangular_solve on the factor's strictly lower part in
+    CSR (lower_csr; unitriangular, so cuSPARSE's triangular solve), held
+    to SOLVE_PLAIN_TOL of the kernel's result.  Beside the bytes bound,
+    the only bound, the design's measured chain time (``chain_ms``, not a
+    limit of the card): the plan's levels times this walk's time a level
+    over a CHAIN_LEVELS-level path of one-slot rows whose levels hand off
+    through the done counter (a hand-off, a gather and a commit), and
+    the same with the walk's runs (the levels that follow another of
+    their run inside one block at the path's per-level time with
+    runs)."""
+    import torch
+    from repro_torch.kernels import ops, spmv
+    fwd = slabs["fwd"]
+    n, levels = fwd.n, fwd.plan.shape[0]
+    live = int(fwd.row_len.sum())
+    chain = chain_schedule(dev)
+    csr = lower_csr(fwd)
+    rows_out = []
+    for name, B in (("ell_sweep", 1), ("ell_sweep_multi", 8)):
+        gen = torch.Generator(device=dev).manual_seed(7 + B)
+        y0 = torch.randn((n,) if B == 1 else (n, B), generator=gen,
+                         device=dev)
+        got = ops.trisolve_panels(fwd, y0)
+        full = ops.trisolve_panels_full(fwd, y0)
+        check(bitwise_equal(got, full), f"{name}: the whole forward solve "
+                                        f"differs from the full-row "
+                                        f"composition")
+        plain = y0.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spmv.ell_sweep_plain(fwd.cols, fwd.vals, fwd.row_len, fwd.row_ids,
+                             plain, fwd.plan)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = float((got - plain).abs().max())
+        scale = max(float(plain.abs().max()), 1e-30)
+        rel = err / scale
+        check(rel <= SOLVE_PLAIN_TOL, f"{name}: the whole forward solve is "
+                                      f"{rel:.2e} of its largest value from "
+                                      f"its plain version")
+        y_in = y0.reshape(n, B)
+
+        def library(y_in=y_in):
+            return torch.triangular_solve(y_in, csr, upper=False,
+                                          unitriangular=True).solution
+        lib_rel = float((library().reshape(got.shape) - got).abs().max()
+                        ) / scale
+        check(lib_rel <= SOLVE_PLAIN_TOL,
+              f"torch.triangular_solve disagrees with {name}'s whole "
+              f"forward solve ({lib_rel:.2e} of its largest value)")
+
+        def solve(y0=y0):
+            return ops.trisolve_panels(fwd, y0)
+        ms = time_ms(solve)
+        library_ms = time_ms(library)
+        device_ms = kernel_device_ms(solve, lambda: None, "walk_kernel")
+        busy, events = device_busy_ms(solve)
+        hand = chain_per_level_us(dev, chain, B, pieces=True)
+        inside = chain_per_level_us(dev, chain, B)
+        # a trace may lose the kernel's record: then the busy time, then
+        # the CUDA-event time of the same calls
+        per, per_in = (next(t[k] for k in ("kernel", "busy", "event")
+                            if t[k] is not None) for t in (hand, inside))
+        chain_ms = levels * per / 1e3
+        in_runs = run_levels(fwd)
+        run_chain_ms = ((levels - in_runs) * per + in_runs * per_in) / 1e3
+        nbytes = solve_bytes(fwd, B)
+        rows_out.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/"
+                   + ("ell_spmv.cu" if B == 1 else "ell_spmv_multi.cu"),
+            replaces="src/repro/kernels/spmv.py:"
+                     + ("65" if B == 1 else "139"),
+            launches=lib["launches"].get(name, 0),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **bound(nbytes, 2 * B * live), library_ms=library_ms,
+            chain_ms=chain_ms,
+            shape=f"whole forward solve: B={B} levels={levels} "
+                  f"rows={int(fwd.plan[:, 1].sum())} live_slots={live} "
+                  f"bytes={nbytes}; the design's chain time (not a limit "
+                  f"of the card) {chain_ms:.4f} ms = {levels} levels x "
+                  f"{per:.3f} us, this walk's hand-off (over a "
+                  f"{CHAIN_LEVELS}-level path in pieces: kernel "
+                  f"{hand['kernel']}, busy {hand['busy']}, event "
+                  f"{hand['event']} us a level); with runs "
+                  f"{run_chain_ms:.4f} ms ({in_runs} levels inside runs at "
+                  f"{per_in:.3f} us); call busy {busy} ms in "
+                  f"{events} device events; relative error {rel:.2e} vs "
+                  f"plain; library torch.triangular_solve on the CSR lower "
+                  f"part, {lib_rel:.2e} from the kernel",
+            device_ms=device_ms))
+        log(f"[timing] {name} whole forward solve B={B}: "
+            f"{ms:.4f} ms against the bytes bound "
+            f"{rows_out[-1]['bound_ms']:.4f} ms; the design's chain time "
+            f"{chain_ms:.4f} ms; torch.triangular_solve {library_ms:.4f} ms")
     log_rows(rows_out)
     return rows_out
 
@@ -1826,6 +2068,12 @@ def apply_timing(dev, main, slabs):
         if tag.startswith("main"):
             check(calls.n == 2, f"{tag}: the apply made {calls.n} "
                                 f"ell_sweep_fleet calls, not 2")
+        else:
+            name = "ell_sweep" if tag.endswith("1 rhs") else "ell_sweep_multi"
+            check(calls.n == 2
+                  and {k: v for k, v in launches.items() if v} == {name: 2},
+                  f"{tag}: the apply made {calls.n} sweep calls and "
+                  f"launched {launches}, not 2 calls and 2 {name}")
     return out
 
 
@@ -4717,6 +4965,7 @@ def main() -> None:
     kernels = phase_timing(dev, main_res, spmv_errs)
     kernels += slab_rows_timing(dev, slabs, lib_res)
     kernels += sweep_rows_timing(dev, slabs, lib_res)
+    kernels += sweep_solve_timing(dev, slabs, lib_res)
     kernels += attention_timing(dev, attn)
     apply_timing(dev, main_res, slabs)
     phase_serve(dev, main_res, card)

@@ -12,8 +12,8 @@ in-neighbours); each level is one data-parallel sweep.  Three builders:
   reads in place;
 * ``build_schedules_device`` — the library path (``make_preconditioner``):
   level-sorted ELL panels (:class:`DeviceSchedule`) whose level slabs the
-  sweep kernels read in place, one launch per level, all issued by one
-  C call per triangular solve.
+  sweep kernels read in place, one launch per triangular solve that walks
+  the levels on the card.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..kernels.spmv import SweepWalk, sweep_walk
 from ..kernels.runtime import resolve_device
 from .ref_ac import ACFactor, DeviceFactor
 from .parac import _next_pow2, _run_ranks
@@ -267,7 +268,8 @@ class DeviceSchedule:
     same row range of ``cols``/``vals``, a contiguous slab that the sweep
     kernels read in place.  Row ``r`` is left-packed: its first
     ``row_len[r]`` slots are live.  ``row_ptr``, ``level_k`` and
-    ``plan`` (the sweep's launches) live on the host.  The backward
+    ``plan`` (the levels the sweep walks) live on the host, ``walk`` (the
+    plan's item table for the sweep kernels) on the device.  The backward
     schedule lives in **flipped** index space (solve row ``i`` is vertex
     ``n-1-i``), unlike :class:`PackedSchedule`."""
 
@@ -283,10 +285,11 @@ class DeviceSchedule:
     level_k: np.ndarray     # int64[n_levels] — longest live row per level
     plan: np.ndarray        # int32[L, 3] — (slab offset, rows, level_k)
                             # of each level >= 1 with rows, in order
+    walk: SweepWalk         # the plan's device item table, built once
 
 
 def _sweep_plan(row_ptr: np.ndarray, level_k: np.ndarray) -> np.ndarray:
-    """The sweep's launches: (slab offset, row count, longest live row) of
+    """The sweep's levels: (slab offset, row count, longest live row) of
     each level ``lv >= 1`` with rows (level-0 rows have no in-edges)."""
     lv = np.flatnonzero(np.diff(row_ptr)[1:] > 0) + 1
     return np.stack([row_ptr[lv], row_ptr[lv + 1] - row_ptr[lv],
@@ -321,9 +324,11 @@ def _schedule_from_edges_device(n: int, dst: torch.Tensor, src: torch.Tensor,
                                 val: torch.Tensor) -> DeviceSchedule:
     """Device schedule from COO solve edges (``dst`` reads ``src``).  Host
     work is O(n) metadata; two host reads (K; the sorted levels with the
-    live row lengths)."""
+    live row lengths) and one copy of the walk's item table to the
+    device."""
     dev = val.device
     if dst.shape[0] == 0:
+        plan = np.zeros((0, 3), np.int32)
         return DeviceSchedule(
             n=n, n_levels=1, K=1,
             row_ids=torch.arange(n, dtype=torch.int32, device=dev),
@@ -332,8 +337,8 @@ def _schedule_from_edges_device(n: int, dst: torch.Tensor, src: torch.Tensor,
             vals=torch.zeros((n, 1), dtype=torch.float32, device=dev),
             level_of=torch.zeros(n, dtype=torch.int32, device=dev),
             row_len=torch.zeros(n, dtype=torch.int32, device=dev),
-            level_k=np.zeros(1, np.int64),
-            plan=np.zeros((0, 3), np.int32))
+            level_k=np.zeros(1, np.int64), plan=plan,
+            walk=sweep_walk(plan, dev))
     dst, src = dst.to(I64), src.to(I64)
     level = _propagate_levels(dst, src, n=n)
     indeg = torch.bincount(dst, minlength=n).to(torch.int32)
@@ -350,10 +355,11 @@ def _schedule_from_edges_device(n: int, dst: torch.Tensor, src: torch.Tensor,
     level_k = np.zeros(n_levels, np.int64)
     held = np.flatnonzero(np.diff(row_ptr) > 0)
     level_k[held] = np.maximum.reduceat(len_h, row_ptr[held])
+    plan = _sweep_plan(row_ptr, level_k)
     return DeviceSchedule(n=n, n_levels=n_levels, K=K, row_ids=row_ids,
                           row_ptr=row_ptr, cols=cols, vals=vals,
                           level_of=level, row_len=row_len, level_k=level_k,
-                          plan=_sweep_plan(row_ptr, level_k))
+                          plan=plan, walk=sweep_walk(plan, dev))
 
 
 def build_schedules_device(f: Union[ACFactor, DeviceFactor], device=None
@@ -378,7 +384,7 @@ def build_schedules_device(f: Union[ACFactor, DeviceFactor], device=None
 def make_ell_solver(sched: DeviceSchedule, flip: bool = False):
     """Unit-triangular solve over a schedule's level slabs for a single
     rhs ``(n,)`` or a block ``(n, nrhs)``: ``ops.trisolve_panels``, one
-    sweep kernel launch per non-empty level."""
+    sweep kernel launch per solve."""
     return partial(ops.trisolve_panels, sched, flip=flip)
 
 

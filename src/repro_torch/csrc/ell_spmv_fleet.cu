@@ -115,9 +115,12 @@
 //     thread's value before the rounds that both kernels share.
 // Lanes share a row's read (below) but not its sums: each keeps its own
 // accumulator, summed in the order above, and the group reduces them by
-// the reduce-scatter of the full-row kernel (halve: own + partner, as
-// group_sum), as many halving steps as the group has offsets, then the
-// plain butterfly.  The commit is one __fsub_rn, as torch's y - Y.
+// ell::group_reduce (ell_row.cuh), the reduce-scatter of the full-row
+// kernel (halve: own + partner, as group_sum), as many halving steps as
+// the group has offsets, then the plain butterfly; the gather and the
+// pipelined long rows are ell_row.cuh's row_sum, which the library
+// path's level walk (ell_walk.cuh) shares.  The commit is one __fsub_rn,
+// as torch's y - Y.
 //
 // What bounds it on an H100: bytes at the largest levels (the live slots,
 // 8 B each, read once, the y sectors they gather, each row's list entry,
@@ -175,6 +178,10 @@ constexpr int kRingBytes = kWarps * kStages * 2 * kStageWords * 4;
 constexpr int kMetaBytes = kWarps * kStages * kMeta * 16;
 constexpr unsigned kFull = 0xffffffffu;
 
+using ell::group_reduce;
+using ell::halve;
+using ell::load_lanes;
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -210,19 +217,6 @@ __device__ __forceinline__ int stage_span(float* dst, const void* src, int n,
   return static_cast<int>((p - a) / 4);
 }
 
-// One halving step of the reduce-scatter over N accumulators at xor
-// offset off: the thread keeps the upper or lower half (by its off bit),
-// sends the other, and adds its own value to its partner's, as group_sum.
-template <int N>
-__device__ __forceinline__ void halve(float* a, int off, bool upper) {
-#pragma unroll
-  for (int j = 0; j < N / 2; ++j) {
-    const float send = upper ? a[j] : a[j + N / 2];
-    const float keep = upper ? a[j + N / 2] : a[j];
-    a[j] = __fadd_rn(keep, __shfl_xor_sync(kFull, send, off));
-  }
-}
-
 // The butterfly of a group of Gp >= NB threads (Gp a power of two <= 32,
 // groups aligned in the warp) over NB accumulators at once: log2 NB
 // halving steps from offset Gp / 2, then the remaining offsets on one
@@ -255,26 +249,6 @@ struct XRead {
   int ld, lane0, nl;
   bool vec;
 };
-
-// NB consecutive floats at p (16 B aligned for NB >= 4, 8 B for 2).
-template <int NB, bool LDG>
-__device__ __forceinline__ void load_lanes(float (&xv)[NB], const float* p) {
-  if constexpr (NB >= 4) {
-#pragma unroll
-    for (int h = 0; h < NB / 4; ++h) {
-      const float4* q = reinterpret_cast<const float4*>(p) + h;
-      const float4 v = LDG ? __ldg(q) : *q;
-      xv[4 * h] = v.x; xv[4 * h + 1] = v.y; xv[4 * h + 2] = v.z;
-      xv[4 * h + 3] = v.w;
-    }
-  } else if constexpr (NB == 2) {
-    const float2* q = reinterpret_cast<const float2*>(p);
-    const float2 v = LDG ? __ldg(q) : *q;
-    xv[0] = v.x; xv[1] = v.y;
-  } else {
-    xv[0] = LDG ? __ldg(p) : *p;
-  }
-}
 
 // NB accumulators += v * (x of each lane of the pass at column c).
 template <int NB, bool XS>
@@ -767,34 +741,6 @@ __global__ void __launch_bounds__(kMaxLanes) group_lanes_kernel(
         p < s_passes ? s_pass[p] : make_int4(0, 0, 0, 0);
 }
 
-// The group's NB accumulators summed over its G threads (G a power of two
-// <= 32, groups aligned in the warp): the reduce-scatter's halving steps
-// while the group has offsets left for them (min(log2 G, log2 NB) steps),
-// then the butterfly's remaining offsets on one value.  Thread g of the
-// group ends with the full sums of NB >> steps lanes in a[0 ..): those
-// from (g >> (log2 G - steps)) * (NB >> steps) on, each bitwise
-// ell::group_sum of that lane's accumulator (the note above).
-template <int NB>
-__device__ __forceinline__ void group_reduce(float (&a)[NB], int lane_id,
-                                            int G) {
-  int off = G >> 1, held = NB;
-  if constexpr (NB >= 8) {
-    if (off > 0) { halve<8>(a, off, lane_id & off); off >>= 1; held = 4; }
-  }
-  if constexpr (NB >= 4) {
-    if (off > 0 && held == 4) {
-      halve<4>(a, off, lane_id & off); off >>= 1; held = 2;
-    }
-  }
-  if constexpr (NB >= 2) {
-    if (off > 0 && held == 2) {
-      halve<2>(a, off, lane_id & off); off >>= 1; held = 1;
-    }
-  }
-  for (; off > 0; off >>= 1)
-    a[0] = __fadd_rn(a[0], __shfl_xor_sync(kFull, a[0], off));
-}
-
 // Where a pass reads and writes y: accumulator b is lane b of an
 // interleaved y whose rows hold NB lanes (VEC: one or two 16 B loads of a
 // 32 B sector a slot), or the pass's lane order[q0 + b] (held in lanes[b]
@@ -833,68 +779,6 @@ __device__ __forceinline__ void gather(float (&xv)[NB], int c,
   }
 }
 
-// Thread g's partial sums of one row: its slots g, g + G, ... below len in
-// ascending order, one fused multiply-add per slot and accumulator, the
-// first slot (v0, c0) already read.  LONG (a level whose longest row
-// exceeds 32 slots, so G = 32 and a thread may hold several): the rest go
-// in batches of U slots, the batch's (col, val) pairs read together and
-// its gathers issued with the next batch's reads, then its multiply-adds
-// in slot order, so a long row costs about one round trip to memory a
-// batch, not two a slot (the sums are the same).  Otherwise each thread holds one slot at most, and the kernel
-// keeps the registers the batches would take for more blocks an SM.
-template <int NB, bool VEC, bool LONG>
-__device__ __forceinline__ void row_sum(float (&acc)[NB],
-                                        const int* __restrict__ cols,
-                                        const float* __restrict__ vals,
-                                        int len, int g, int G, float v0,
-                                        int c0, const float* y,
-                                        const PassLanes<NB, VEC>& pl) {
-  constexpr int U = NB >= 4 ? 4 : 8;
-  if (g < len) {
-    float xv[NB];
-    gather<NB, VEC>(xv, c0, y, pl);
-#pragma unroll
-    for (int b = 0; b < NB; ++b) acc[b] = __fmaf_rn(v0, xv[b], acc[b]);
-  }
-  if constexpr (!LONG) return;
-  // software-pipelined: a batch's gathers are in flight with the next
-  // batch's (col, val) reads
-  float v[U];
-  int c[U];
-  auto read = [&](int k) {
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const bool ok = k + u * G < len;
-      v[u] = ok ? __ldg(vals + k + u * G) : 0.0f;
-      c[u] = ok ? __ldg(cols + k + u * G) : 0;
-    }
-  };
-  int k = g + G;
-  if (k < len) read(k);
-  for (; k < len; k += U * G) {
-    float xv[U][NB], vk[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      vk[u] = v[u];
-      if (k + u * G < len) {
-        gather<NB, VEC>(xv[u], c[u], y, pl);
-      } else {
-#pragma unroll
-        for (int b = 0; b < NB; ++b) xv[u][b] = 0.0f;
-      }
-    }
-    if (k + U * G < len) read(k + U * G);
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (k + u * G < len) {
-#pragma unroll
-        for (int b = 0; b < NB; ++b)
-          acc[b] = __fmaf_rn(vk[u], xv[u][b], acc[b]);
-      }
-    }
-  }
-}
-
 // One pass over the block's rows of level lv of factor f: G threads a row,
 // thread g summing its slots g, g + G, ... below the row's length in
 // ascending order for every accumulator at once, then group_reduce, then
@@ -924,8 +808,10 @@ __device__ __forceinline__ void sweep_pass(
       c0 = __ldg(cols + base + g);
     }
     if (writer && (pl.member >> first & 1u)) own0 = y[pl.at_dyn(first, i)];
-    row_sum<NB, VEC, LONG>(acc, cols + base, vals + base, len, g, G, v0, c0,
-                           y, pl);
+    ell::row_sum<NB, LONG>(acc, cols + base, vals + base, len, g, G, v0, c0,
+                           [&](float (&xv)[NB], int c) {
+                             gather<NB, VEC>(xv, c, y, pl);
+                           });
   }
   group_reduce<NB>(acc, lane_id, G);
   if (r < count && writer) {
@@ -964,12 +850,9 @@ __global__ void __launch_bounds__(kSweepThreads) ell_sweep_fleet_kernel(
   const int r = blockIdx.x * rows_per_block + static_cast<int>(threadIdx.x) / G;
   // the accumulators whose full sums this thread holds after group_reduce,
   // and whether it writes them (one writer per sum): G and NB fix them
-  constexpr int h = NB == 8 ? 3 : NB == 4 ? 2 : NB == 2 ? 1 : 0;
-  const int lg = __ffs(G) - 1;
-  const int steps = lg < h ? lg : h;
-  const int held = NB >> steps;
-  const int first = (g >> (lg - steps)) * held;
-  const bool writer = (g & ((1 << (lg - steps)) - 1)) == 0;
+  const ell::Held hs = ell::held_sums<NB>(g, G);
+  const int held = hs.count, first = hs.first;
+  const bool writer = hs.writer;
   // vector gathers: an interleaved row of exactly NB lanes, read whole
   const bool vec = NB >= 2 && sl == 1 && si == NB
       && reinterpret_cast<uintptr_t>(y) % (NB >= 4 ? 16 : 8) == 0;

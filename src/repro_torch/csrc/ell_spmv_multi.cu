@@ -23,27 +23,53 @@
 //
 // ell_sweep_multi: the same TPU kernel's redesign for the library path's
 // level slabs, the block form of ell_sweep (ell_spmv.cu): one triangular
-// solve with x [n, B] row-major (ops.trisolve_panels with a block of
-// right-hand sides), in place, commit fused in: for each row i = row_ids[r] of level lv and each
-// column b,
+// solve with y [n, B] row-major (ops.trisolve_panels with a block of
+// right-hand sides), in place, commit fused in, in one launch: the
+// persistent walk of ell_walk.cuh.  For each row i = row_ids[r] of each
+// plan entry, in order, and each column b,
 //
 //   y[i, b] = y[i, b] - sum_{k < row_len[r]} vals[r, k] * y[cols[r, k], b]
 //
-// Each live (col, val) pair is read once for up to kCols columns (B >
-// kCols runs the row once per chunk of kCols columns; a chunk reads only
-// rows of lower levels, so the row's own earlier chunks do not feed it).
-// G = group_width(level_k) threads per row, as in ell_sweep, so column b
-// equals ell_sweep of that column bit for bit and equals the full-row
-// kernel followed by y[rows] -= Y bit for bit, by ell_sweep's argument.
-// Bound: bytes (the live slots once for all columns, the gathered 4·B-byte
-// rows of y, row_ids, row_len and the level's rows of y in and out), and
-// at most levels the launch.  The design reads live slots only, narrows
-// the group to the level's longest row, and runs the level loop in the C
-// entry point (one call per triangular solve, no Python per level).
+// Coherence and deadlock freedom are ell_sweep's (ell_spmv.cu, and the
+// note of ell_walk.cuh): y is written by the launch and read only by
+// plain loads after the item's wait on the previous entry's done counter
+// (relaxed poll, fence.acq_rel.gpu, __syncthreads), published by
+// __syncthreads and red.release.gpu; items (pieces of an entry, runs of
+// small entries) are taken by a ticket in plan order.
+//
+// A block of columns.  Each live (col, val) pair is read once for NB
+// columns (NB = 8 for B >= 5, 4 for B = 3-4, 2, 1; B > 8 runs the row
+// once per chunk of 8, and a chunk reads only rows of earlier entries, so
+// the row's own earlier chunks do not feed it).  Where B is a multiple of
+// NB and y is aligned for it (B = 8: a row of y is one 32 B sector), a
+// slot gathers the chunk's NB values of a column as one or two 16 B
+// loads; otherwise (B = 11, B = 3) one scalar load a column.  The group
+// reduces the NB accumulators together by ell::group_reduce, the
+// reduce-scatter of the fleet sweep (9 shuffles for 8 columns at G = 32,
+// not 40), and one thread commits each column's sum.  Long rows are read
+// in pipelined batches of 8 slots a thread, the first read before the
+// wait (ell::row_sum_read).
+//
+// Same bits.  Each column keeps its own accumulator, summed in ell_sweep's
+// order (its slots g, g + G, ... by fused multiply-adds from +0, G =
+// group_width(level_k)), and the reduce-scatter forms only partial sums
+// that group_sum forms (own + partner), so column b equals ell_sweep of
+// that column bit for bit and, by ell_sweep's argument, equals the
+// full-row kernel followed by y[rows] -= Y (the one exception again a
+// negative product that underflows to -0).
+//
+// What bounds it on an H100: the chain of levels, as ell_sweep: the bytes
+// (the live slots once for all columns, the gathered 4·B-byte rows of y,
+// row_ids, row_len and the level's rows of y in and out, over 3.35 TB/s)
+// are microseconds a solve, while the levels run one after another, each
+// behind a counter hand-off and a gather of y from L2.  One 32 B gather a
+// slot and the reduce-scatter keep a level's own work at 8 columns close
+// to one column's, so the block solve costs about what a single one does.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "ell_row.cuh"
+#include "ell_walk.cuh"
 
 namespace {
 
@@ -75,34 +101,6 @@ __global__ void __launch_bounds__(kThreads) ell_spmv_multi_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) ell_sweep_multi_kernel(
-    const int* __restrict__ cols, const float* __restrict__ vals,
-    const int* __restrict__ row_len, const int* __restrict__ row_ids,
-    float* y, int lo, int count, int K, int B, int G) {
-  const int rows_per_block = kThreads / G;
-  const int g = threadIdx.x % G;
-  const int r = blockIdx.x * rows_per_block + threadIdx.x / G;
-  const int64_t slot = static_cast<int64_t>(lo) + r;
-  const int i = r < count ? row_ids[slot] : 0;
-  const int len = r < count ? row_len[slot] : 0;
-  float* yi = y + static_cast<int64_t>(i) * B;
-  for (int c0 = 0; c0 < B; c0 += kCols) {
-    const int nb = B - c0 < kCols ? B - c0 : kCols;
-    float acc[kCols];
-#pragma unroll
-    for (int b = 0; b < kCols; ++b) acc[b] = 0.0f;
-    if (r < count)
-      ell::row_partial<kCols>(cols + slot * K, vals + slot * K, y + c0, B,
-                              len, g, G, nb, acc);
-#pragma unroll
-    for (int b = 0; b < kCols; ++b) {
-      const float sum = ell::group_sum(acc[b], G);
-      if (r < count && g == 0 && b < nb)
-        yi[c0 + b] = __fsub_rn(yi[c0 + b], sum);
-    }
-  }
-}
-
 }  // namespace
 
 // Returns a cudaError_t; 0 on a successful launch.  cols/vals: [R, K]
@@ -120,29 +118,24 @@ extern "C" int ell_spmv_multi_launch(const int* cols, const float* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One triangular solve, in place on y [n, B] row-major: cols/vals [R, K]
-// contiguous, row_len/row_ids [R] int32, plan a host array [n_plan, 3]
-// int32 of (slab offset, row count, longest live row) per level, in solve
-// order.  Returns the number of launches, or minus the cudaError_t of the
-// first launch that failed.
+// One triangular solve, in place on y [n, B] row-major: the arguments of
+// ell_sweep_launch (ell_spmv.cu) and the column count B.  One launch, or
+// none when there are no items or columns.  Returns the number of
+// launches, or minus the cudaError_t of what failed.
 extern "C" int ell_sweep_multi_launch(const int* cols, const float* vals,
                                       const int* row_len, const int* row_ids,
-                                      float* y, const int* plan, int n_plan,
-                                      int K, int B, void* stream) {
-  if (B <= 0) return 0;
+                                      const int* items, const int* entries,
+                                      int* ws, float* y, int n_items,
+                                      int n_entries, int ws_words, int K,
+                                      int B, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int launched = 0;
-  for (int p = 0; p < n_plan; ++p) {
-    const int lo = plan[3 * p], count = plan[3 * p + 1];
-    if (count <= 0) continue;
-    const int G = ell::group_width(plan[3 * p + 2]);
-    const int rows_per_block = kThreads / G;
-    const int blocks = (count + rows_per_block - 1) / rows_per_block;
-    ell_sweep_multi_kernel<<<blocks, kThreads, 0, s>>>(
-        cols, vals, row_len, row_ids, y, lo, count, K, B, G);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return -static_cast<int>(err);
-    ++launched;
-  }
-  return launched;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(y);
+#define WALK(NB, VEC)                                                      \
+  ell::walk<NB, VEC>(cols, vals, row_len, row_ids, items, entries, ws, \
+                     y, n_items, n_entries, ws_words, K, B, s)
+  if (B >= 5) return B % 8 == 0 && a % 16 == 0 ? WALK(8, true) : WALK(8, false);
+  if (B >= 3) return B % 4 == 0 && a % 16 == 0 ? WALK(4, true) : WALK(4, false);
+  if (B == 2) return a % 8 == 0 ? WALK(2, true) : WALK(2, false);
+  return WALK(1, false);
+#undef WALK
 }

@@ -223,14 +223,15 @@ def trisolve_panels(sched, b: torch.Tensor, flip: bool = False
     """Unit-triangular solve over a ``trisolve.DeviceSchedule``'s
     level-sorted ELL panels: one sweep (``ell_sweep`` for ``b`` of shape
     ``(n,)``, ``ell_sweep_multi`` for ``(n, B)``) over the schedule's
-    ``plan``, one kernel launch per non-empty level ``lv >= 1``, each
-    updating the rows ``row_ids[row_ptr[lv]:row_ptr[lv+1]]`` in place over
-    their live slots.  Equal to :func:`trisolve_panels_full` bit for bit;
-    ``b`` is not modified."""
+    ``plan`` (its ``walk``), one kernel launch (on the card) that walks the non-empty
+    levels ``lv >= 1`` in order, updating the rows
+    ``row_ids[row_ptr[lv]:row_ptr[lv+1]]`` in place over their live
+    slots.  Equal to :func:`trisolve_panels_full` bit for bit; ``b`` is
+    not modified."""
     y = _working_copy(b, flip)
     sweep = _spmv.ell_sweep if y.dim() == 1 else _spmv.ell_sweep_multi
     sweep(sched.cols, sched.vals, sched.row_len, sched.row_ids, y,
-          sched.plan)
+          sched.walk)
     return torch.flip(y, (0,)) if flip else y
 
 

@@ -34,11 +34,14 @@ versions.  A CPU tensor takes the plain version, a CUDA tensor the kernel
   ``DeviceSchedule``), in place on ``y`` ``[n]`` / ``[n, B]``: for each
   level of the plan, ``y[i] -= Σ_{k < row_len[r]} vals[r, k] ·
   y[cols[r, k]]`` for the slab rows ``r`` of that level, ``i =
-  row_ids[r]``.  One launch per level, all issued by one C call; the
+  row_ids[r]``.  One launch per triangular solve: a persistent kernel
+  (``csrc/ell_walk.cuh``) whose blocks take the plan's rows in order by a
+  ticket and wait on the previous level's done counter on the card, from
+  the item table of :func:`sweep_walk` (the sweeps' last argument); the
   redesign of ``ell_spmv_pallas`` / ``ell_spmv_multi_pallas`` for the
-  library path, in the same sources as ``ell_spmv`` / ``ell_spmv_multi``.
-  A committed row equals ``ell_spmv`` / ``ell_spmv_multi`` followed by
-  ``y[rows] -= Y`` bit for bit.
+  library path, in the same sources as ``ell_spmv`` / ``ell_spmv_multi``.  A committed row
+  equals ``ell_spmv`` / ``ell_spmv_multi`` followed by ``y[rows] -= Y``
+  bit for bit.
 
 All these kernels sum a row in one order that depends on K alone
 (``csrc/ell_row.cuh``; the sweeps over a level's longest live row, which
@@ -51,6 +54,7 @@ for bit.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -492,48 +496,139 @@ def ell_sweep_plain(cols, vals, row_len, row_ids, y, plan) -> None:
 ell_sweep_multi_plain = ell_sweep_plain
 
 
-def _sweep(name, y_ndim, cols, vals, row_len, row_ids, y, plan) -> None:
-    """Check once and make the one C call of a sweep, which launches one
-    kernel per level with rows; counts what it launched."""
+# rows of a block of the level walk (kWalkThreads of csrc/ell_walk.cuh),
+# the int32 words from one done counter of its workspace to the next
+# (kWalkStride) and the most entries one run item holds (kWalkRun)
+WALK_THREADS = 256
+WALK_STRIDE = 32
+WALK_RUN = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepWalk:
+    """The level walk's device tables for one host plan (built once per
+    schedule by :func:`sweep_walk`, beside the plan).  ``entries`` int32
+    ``[n_entries, 4]``: (slab offset, rows, longest live row, 0) of each
+    plan entry with rows, in order (an entry waits on the one before it);
+    ``items`` int32 ``[n_items, 4]``, in plan order: (first slab row, rows,
+    entry, longest live row) of a piece of at most ``WALK_THREADS //
+    group_width(level_k)`` rows of one entry, or (first entry's offset,
+    entries, first entry, -1) of a run of 2 to ``WALK_RUN`` consecutive
+    entries whose rows each fit one block, which one block sweeps in
+    turn."""
+
+    plan: np.ndarray
+    items: torch.Tensor
+    entries: torch.Tensor
+
+    @property
+    def n_items(self) -> int:
+        return self.items.shape[0]
+
+    @property
+    def n_entries(self) -> int:
+        return self.entries.shape[0]
+
+
+def walk_items(plan: np.ndarray):
+    """The host side of :func:`sweep_walk`: (items ``[n_items, 4]``,
+    entries ``[n_entries, 4]``) as int32 numpy arrays."""
+    live = plan[plan[:, 1] > 0].astype(np.int64)
+    entries = np.zeros((live.shape[0], 4), np.int64)
+    entries[:, :3] = live
+    items = []
+    e = 0
+    while e < live.shape[0]:
+        lo, count, k = (int(v) for v in live[e])
+        per = WALK_THREADS // group_width(k)
+        run = e
+        while (run < live.shape[0] and run - e < WALK_RUN
+               and live[run, 1] <= WALK_THREADS // group_width(
+                   int(live[run, 2]))):
+            run += 1
+        if run - e >= 2:
+            items.append((lo, run - e, e, -1))
+            e = run
+            continue
+        items.extend((lo + start, min(per, count - start), e, k)
+                     for start in range(0, count, per))
+        e += 1
+    return (np.array(items, np.int32).reshape(-1, 4),
+            entries.astype(np.int32))
+
+
+def sweep_walk(plan: np.ndarray, device) -> SweepWalk:
+    """The level walk's item and entry tables of ``plan`` (a host int32
+    ``[L, 3]`` of (slab offset, rows, longest live row)) on ``device``:
+    one host-to-device copy each, made once per schedule."""
+    items, entries = walk_items(plan)
+    dev = torch.device(device)
+    return SweepWalk(plan=plan, items=torch.from_numpy(items).to(dev),
+                     entries=torch.from_numpy(entries).to(dev))
+
+
+def _sweep(name, y_ndim, cols, vals, row_len, row_ids, y, walk) -> None:
+    """Check once and make the one C call of a sweep: a workspace zeroed
+    on the stream and one launch of the level walk (none for an empty
+    plan); counts what it launched."""
     dev = y.device
     runtime.require(cols, "cols", torch.int32, 2, dev)
     runtime.require(vals, "vals", torch.float32, 2, dev)
     runtime.require(row_len, "row_len", torch.int32, 1, dev)
     runtime.require(row_ids, "row_ids", torch.int32, 1, dev)
     runtime.require(y, "y", torch.float32, y_ndim, dev)
-    _check_sweep(name, cols, vals, row_len, row_ids, y, plan, y_ndim)
-    ints = (cols.shape[1],) + tuple(y.shape[1:])      # K, then B
+    _check_sweep(name, cols, vals, row_len, row_ids, y, walk.plan, y_ndim)
+    runtime.require(walk.items, "walk.items", torch.int32, 2, dev)
+    runtime.require(walk.entries, "walk.entries", torch.int32, 2, dev)
+    ws_words = (walk.n_entries + 1) * WALK_STRIDE
+    ws = torch.empty(ws_words, dtype=torch.int32, device=dev)
+    ints = (walk.n_items, walk.n_entries, ws_words,
+            cols.shape[1]) + tuple(y.shape[1:])           # K, then B
     source = "ell_spmv" if y_ndim == 1 else "ell_spmv_multi"
-    launched = _launcher(source, 6, 1 + len(ints), name)(
+    launched = _launcher(source, 8, len(ints), name)(
         cols.data_ptr(), vals.data_ptr(), row_len.data_ptr(),
-        row_ids.data_ptr(), y.data_ptr(), plan.ctypes.data, plan.shape[0],
-        *ints, runtime.stream_ptr(y))
+        row_ids.data_ptr(), walk.items.data_ptr(),
+        walk.entries.data_ptr(), ws.data_ptr(), y.data_ptr(), *ints,
+        runtime.stream_ptr(y))
     if launched < 0:
         runtime.check_launch(name, -launched)
     runtime.count_launch(name, launched)
 
 
-def ell_sweep(cols, vals, row_len, row_ids, y, plan) -> None:
+def _walk_of(name, walk) -> SweepWalk:
+    """``walk`` itself, refused unless it is a :class:`SweepWalk`."""
+    if not isinstance(walk, SweepWalk):
+        raise TypeError(f"{name}: takes the plan's SweepWalk "
+                        f"(spmv.sweep_walk), not {type(walk).__name__}")
+    return walk
+
+
+def ell_sweep(cols, vals, row_len, row_ids, y, walk) -> None:
     """One unit-triangular solve over a level-sorted panel, in place on
     ``y`` float32 ``[n]``: cols int32 / vals float32 ``[n, K]`` (row ``r``
     holds the in-edges of row ``row_ids[r]``, left-packed), row_len
-    (live slots) and row_ids int32 ``[n]``, plan the host int32 array
-    ``[L, 3]`` of (slab offset, row count, longest live row) of each level
-    to sweep, in order.  One kernel launch per level with rows, all from
-    one C call; the tensors are checked once, not per level."""
+    (live slots) and row_ids int32 ``[n]``, and ``walk`` the
+    :class:`SweepWalk` of the host plan (int32 ``[L, 3]`` of (slab
+    offset, row count, longest live row) of each level to sweep, in
+    order) that a schedule builds once.  On the card one launch walks
+    every level (none for a plan without rows); on the CPU the plain
+    version sweeps ``walk.plan``.  The tensors are checked once."""
+    walk = _walk_of("ell_sweep", walk)
     if y.device.type == "cpu":
-        return ell_sweep_plain(cols, vals, row_len, row_ids, y, plan)
+        return ell_sweep_plain(cols, vals, row_len, row_ids, y, walk.plan)
     if y.device.type != "cuda":
         raise ValueError(f"ell_sweep: unsupported device {y.device}")
-    _sweep("ell_sweep", 1, cols, vals, row_len, row_ids, y, plan)
+    _sweep("ell_sweep", 1, cols, vals, row_len, row_ids, y, walk)
 
 
-def ell_sweep_multi(cols, vals, row_len, row_ids, y, plan) -> None:
+def ell_sweep_multi(cols, vals, row_len, row_ids, y, walk) -> None:
     """:func:`ell_sweep` for a block ``y`` float32 ``[n, B]`` (row-major):
     each live (col, val) pair read once for up to 8 columns; column ``b``
     equals ``ell_sweep`` of that column bit for bit."""
+    walk = _walk_of("ell_sweep_multi", walk)
     if y.device.type == "cpu":
-        return ell_sweep_multi_plain(cols, vals, row_len, row_ids, y, plan)
+        return ell_sweep_multi_plain(cols, vals, row_len, row_ids, y,
+                                     walk.plan)
     if y.device.type != "cuda":
         raise ValueError(f"ell_sweep_multi: unsupported device {y.device}")
-    _sweep("ell_sweep_multi", 2, cols, vals, row_len, row_ids, y, plan)
+    _sweep("ell_sweep_multi", 2, cols, vals, row_len, row_ids, y, walk)

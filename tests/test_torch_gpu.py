@@ -448,15 +448,16 @@ def _library_schedules(dev, name):
     return build_schedules_device(f)
 
 
-@pytest.mark.parametrize("B", [None, 1, 8, 11], ids=lambda B: f"B{B}")
+@pytest.mark.parametrize("B", [None, 1, 3, 8, 11], ids=lambda B: f"B{B}")
 @pytest.mark.parametrize("name", ["powerlaw_micro", "grid3d_8"])
 def test_ell_sweep_kernels(dev, name, B):
-    """The library path's sweeps on the card: each level against the plain
-    version on the same input (relative 1e-5: the plain version sums a row
-    left to right, the kernel in ell_row.cuh's order), the whole solve
-    against the full-row composition (ell_spmv / ell_spmv_multi, then
-    y[rows] -= Y) bit for bit, one launch per planned level, and each
-    column of a block equal to ell_sweep of that column bit for bit."""
+    """The library path's sweeps on the card: each level alone against the
+    plain version on the same input (relative 1e-5: the plain version sums
+    a row left to right, the kernel in ell_row.cuh's order), the whole
+    solve against the full-row composition (ell_spmv / ell_spmv_multi,
+    then y[rows] -= Y) bit for bit, forward and backward, one launch per
+    triangular solve, and each column of a block equal to ell_sweep of
+    that column bit for bit."""
     from repro_torch.kernels import ops
     name_k = "ell_sweep" if B is None else "ell_sweep_multi"
     kernel = spmv.ell_sweep if B is None else spmv.ell_sweep_multi
@@ -470,12 +471,12 @@ def test_ell_sweep_kernels(dev, name, B):
             one = s.plan[p:p + 1]
             want = y.clone()
             spmv.ell_sweep_plain(*args, want, one)
-            kernel(*args, y, one)
+            kernel(*args, y, spmv.sweep_walk(one, dev))
             assert torch.allclose(y, want, rtol=1e-5, atol=1e-5)
             y = want
         before = runtime.LAUNCHES.get(name_k, 0)
         got = ops.trisolve_panels(s, y0, flip=flip)
-        assert runtime.LAUNCHES[name_k] == before + s.plan.shape[0]
+        assert runtime.LAUNCHES[name_k] == before + 1
         full = ops.trisolve_panels_full(s, y0, flip=flip)
         assert torch.equal(got.view(torch.int32), full.view(torch.int32))
         if B is not None:
@@ -485,9 +486,157 @@ def test_ell_sweep_kernels(dev, name, B):
                                    col.view(torch.int32))
 
 
+def _walk_solves(dev, name, B):
+    """(schedule, flip, y0, the full-row composition's solve) for both
+    triangular solves of ``name``'s factor, y0 seeded ``[n]`` or
+    ``[n, B]``."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(17 + (B or 0))
+    out = []
+    for s, flip in zip(_library_schedules(dev, name), (False, True)):
+        y0 = torch.randn((s.n,) if B is None else (s.n, B), generator=gen,
+                         device=dev)
+        out.append((s, flip, y0, ops.trisolve_panels_full(s, y0, flip=flip)))
+    return out
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("B", [None, 8])
+def test_ell_sweep_walk_repeated_calls(dev, B):
+    """Ten solves in a row on one schedule, each with its own workspace
+    zeroed on the stream: every one bitwise equal to the full-row
+    composition, one launch each."""
+    from repro_torch.kernels import ops
+    name_k = "ell_sweep" if B is None else "ell_sweep_multi"
+    for s, flip, y0, want in _walk_solves(dev, "grid3d_8", B):
+        before = runtime.LAUNCHES.get(name_k, 0)
+        got = [ops.trisolve_panels(s, y0, flip=flip) for _ in range(10)]
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES[name_k] == before + 10
+        assert all(_bits_equal(g, want) for g in got)
+
+
+@pytest.mark.parametrize("B", [None, 8])
+def test_ell_sweep_walk_two_streams(dev, B):
+    """Two streams sweep one schedule at once, 8 solves each on their own
+    right-hand sides: every result bitwise equal to the full-row
+    composition (the two calls share no workspace)."""
+    from repro_torch.kernels import ops
+    for s, flip, y0, want in _walk_solves(dev, "powerlaw_micro", B):
+        y1 = torch.flip(y0, (0,)).contiguous()
+        want1 = ops.trisolve_panels_full(s, y1, flip=flip)
+        torch.cuda.synchronize()
+        streams = [torch.cuda.Stream(device=dev) for _ in range(2)]
+        got = {0: [], 1: []}
+        for _ in range(8):
+            for k, st in enumerate(streams):
+                with torch.cuda.stream(st):
+                    got[k].append(ops.trisolve_panels(
+                        s, y0 if k == 0 else y1, flip=flip))
+        torch.cuda.synchronize()
+        assert all(_bits_equal(g, want) for g in got[0])
+        assert all(_bits_equal(g, want1) for g in got[1])
+
+
+def test_ell_sweep_walk_beside_a_full_card(dev):
+    """A solve enqueued on one stream while another stream keeps the card
+    full (large matrix products and a larger schedule's solves, which
+    take every resident block): both finish, and both sweeps equal the
+    full-row composition bit for bit."""
+    from repro_torch.kernels import ops
+    big = _walk_solves(dev, "grid3d_8", 8)
+    small = _walk_solves(dev, "powerlaw_micro", None)
+    a = torch.randn((4096, 4096), device=dev)
+    torch.cuda.synchronize()
+    busy, side = torch.cuda.Stream(device=dev), torch.cuda.Stream(device=dev)
+    with torch.cuda.stream(busy):
+        filler = [a @ a for _ in range(4)]
+        got_big = [ops.trisolve_panels(s, y0, flip=flip)
+                   for s, flip, y0, _ in big for _ in range(4)]
+    with torch.cuda.stream(side):
+        got_small = [ops.trisolve_panels(s, y0, flip=flip)
+                     for s, flip, y0, _ in small]
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(f).all()) for f in filler)
+    for k, (_, _, _, want) in enumerate(big):
+        assert all(_bits_equal(g, want) for g in got_big[4 * k:4 * k + 4])
+    for g, (_, _, _, want) in zip(got_small, small):
+        assert _bits_equal(g, want)
+
+
+@pytest.mark.parametrize("B", [None, 8, 11])
+def test_ell_sweep_walk_runs(dev, B):
+    """A path of 300 one-row levels, each row also reading 40 rows of
+    level 0 (41 live slots: G = 32, up to two slots a thread): the walk
+    sweeps it in runs of up to 64 levels, one block each, bitwise equal to
+    the full-row composition, in one launch."""
+    from repro_torch.core.trisolve import _schedule_from_edges_device
+    from repro_torch.kernels import ops
+    n0, levels = 40, 300
+    i = torch.arange(n0 + 1, n0 + levels + 1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    far = torch.randint(0, n0, (levels, n0), generator=gen, device=dev)
+    dst = torch.cat([i, i.repeat_interleave(n0)])
+    src = torch.cat([i - 1, far.reshape(-1)])
+    val = torch.rand(dst.numel(), generator=gen, device=dev) * 0.05
+    s = _schedule_from_edges_device(n0 + levels + 1, dst, src, val)
+    assert bool((s.walk.items[:, 3] < 0).any())
+    name_k = "ell_sweep" if B is None else "ell_sweep_multi"
+    y0 = torch.randn((s.n,) if B is None else (s.n, B), generator=gen,
+                     device=dev)
+    before = runtime.LAUNCHES.get(name_k, 0)
+    got = ops.trisolve_panels(s, y0)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES[name_k] == before + 1
+    assert _bits_equal(got, ops.trisolve_panels_full(s, y0))
+
+
+@pytest.mark.parametrize("B", [None, 3])
+def test_ell_sweep_walk_one_level_and_empty_plans(dev, B):
+    """A plan of one level (the first with rows, and the one with the
+    longest rows) takes one launch and changes only that level's rows, as
+    the plain version does within 1e-5; an empty plan, and a plan whose
+    only entry holds no rows, launch nothing and leave y as it was."""
+    import numpy as np
+    name_k = "ell_sweep" if B is None else "ell_sweep_multi"
+    kernel = spmv.ell_sweep if B is None else spmv.ell_sweep_multi
+    s, _ = _library_schedules(dev, "powerlaw_micro")
+    args = (s.cols, s.vals, s.row_len, s.row_ids)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    y0 = torch.randn((s.n,) if B is None else (s.n, B), generator=gen,
+                     device=dev)
+    for p in (0, int(np.argmax(s.plan[:, 2]))):
+        one = s.plan[p:p + 1]
+        y, want = y0.clone(), y0.clone()
+        before = runtime.LAUNCHES.get(name_k, 0)
+        kernel(*args, y, spmv.sweep_walk(one, dev))
+        spmv.ell_sweep_plain(*args, want, one)
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES[name_k] == before + 1
+        lo, count = int(one[0, 0]), int(one[0, 1])
+        rows = s.row_ids[lo:lo + count].long()
+        other = torch.ones(s.n, dtype=torch.bool, device=dev)
+        other[rows] = False
+        assert torch.allclose(y, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(y[other], y0[other])
+        assert not torch.equal(y[rows], y0[rows])
+    for plan in (np.zeros((0, 3), np.int32),
+                 np.array([[0, 0, 1]], np.int32)):
+        y = y0.clone()
+        before = runtime.LAUNCHES.get(name_k, 0)
+        kernel(*args, y, spmv.sweep_walk(plan, dev))
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES.get(name_k, 0) == before
+        assert torch.equal(y, y0)
+
+
 def test_ell_sweep_wrappers_reject_bad_input(dev):
     """Bad input raises before any launch: a host tensor among the card's,
-    a float64 y, an int64 plan, a plan entry past the panel."""
+    a float64 y, a walk of an int64 plan, a walk of a plan entry past the
+    panel, a bare plan in place of its walk."""
     import numpy as np
     s, _ = _library_schedules(dev, "powerlaw_micro")
     args = (s.cols, s.vals, s.row_len, s.row_ids)
@@ -495,15 +644,17 @@ def test_ell_sweep_wrappers_reject_bad_input(dev):
     for fn, y in ((spmv.ell_sweep, torch.zeros(s.n, device=dev)),
                   (spmv.ell_sweep_multi, torch.zeros((s.n, 3), device=dev))):
         with pytest.raises(ValueError):
-            fn(s.cols, s.vals, s.row_len.cpu(), s.row_ids, y, s.plan)
+            fn(s.cols, s.vals, s.row_len.cpu(), s.row_ids, y, s.walk)
         with pytest.raises(TypeError):
-            fn(*args, y.double(), s.plan)
+            fn(*args, y.double(), s.walk)
         with pytest.raises(ValueError):
-            fn(*args, y, s.plan.astype(np.int64))
+            fn(*args, y, spmv.sweep_walk(s.plan.astype(np.int64), dev))
         past = s.plan.copy()
         past[-1, 0] = s.n
         with pytest.raises(ValueError):
-            fn(*args, y, past)
+            fn(*args, y, spmv.sweep_walk(past, dev))
+        with pytest.raises(TypeError):
+            fn(*args, y, s.plan)
     assert runtime.LAUNCHES.get("ell_sweep", 0) == before.get("ell_sweep", 0)
     assert (runtime.LAUNCHES.get("ell_sweep_multi", 0)
             == before.get("ell_sweep_multi", 0))

@@ -120,7 +120,8 @@ def test_sweep_of_one_level(schedules):
     y0 = torch.from_numpy(np.random.default_rng(3).normal(
         size=fwd.n).astype(np.float32))
     y = y0.clone()
-    spmv.ell_sweep(fwd.cols, fwd.vals, fwd.row_len, fwd.row_ids, y, plan)
+    spmv.ell_sweep(fwd.cols, fwd.vals, fwd.row_len, fwd.row_ids, y,
+                   spmv.sweep_walk(plan, "cpu"))
     rows = fwd.row_ids[lo:hi].long()
     want = y0.clone()
     want[rows] -= spmv.ell_spmv(fwd.cols[lo:hi], fwd.vals[lo:hi], y0)
@@ -134,27 +135,32 @@ def test_sweep_wrappers_reject_bad_input(schedules):
     _, fwd, _ = schedules["grid2d_tiny"]
     args = (fwd.cols, fwd.vals, fwd.row_len, fwd.row_ids)
     n = fwd.n
+
+    def walk(plan):
+        return spmv.sweep_walk(plan, "cpu")
     for fn, y in ((spmv.ell_sweep, torch.zeros(n, device="meta")),
                   (spmv.ell_sweep_multi, torch.zeros((n, 2), device="meta"))):
         with pytest.raises(ValueError, match="unsupported device"):
-            fn(*args, y, fwd.plan)
+            fn(*args, y, fwd.walk)
     for fn, y in ((spmv.ell_sweep, torch.zeros(n)),
                   (spmv.ell_sweep_multi, torch.zeros((n, 2)))):
         with pytest.raises(ValueError):                  # y shorter than R
-            fn(*args, y[:-1], fwd.plan)
+            fn(*args, y[:-1], fwd.walk)
         with pytest.raises(ValueError):                  # row_len [R - 1]
             fn(fwd.cols, fwd.vals, fwd.row_len[:-1], fwd.row_ids, y,
-               fwd.plan)
+               fwd.walk)
         with pytest.raises(ValueError):                  # vals [R, K - 1]
             fn(fwd.cols, fwd.vals[:, 1:].contiguous(), fwd.row_len,
-               fwd.row_ids, y, fwd.plan)
+               fwd.row_ids, y, fwd.walk)
         with pytest.raises(ValueError):                  # plan int64
-            fn(*args, y, fwd.plan.astype(np.int64))
+            fn(*args, y, walk(fwd.plan.astype(np.int64)))
+        with pytest.raises(TypeError):                   # a plan, no walk
+            fn(*args, y, fwd.plan)
         past = fwd.plan.copy()
         past[-1, 1] += 1                                 # slab past R
         with pytest.raises(ValueError):
-            fn(*args, y, past)
+            fn(*args, y, walk(past))
         wide = fwd.plan.copy()
         wide[0, 2] = fwd.K + 1                           # longer than K
         with pytest.raises(ValueError):
-            fn(*args, y, wide)
+            fn(*args, y, walk(wide))
