@@ -34,10 +34,11 @@ to a plain version while a GPU is present):
            sample_clique_round (once per engine round, fewer than 5,544)
            and the level sweep ell_sweep_fleet must have launched and the
            standalone sample_clique and the full-row ell_spmv_fleet must
-           not.  The factor runs under FactorProbe: each strict attempt
-           (slack, W, rounds run, round of the first dropped edge, wall
-           time; a discarded attempt must stop within 8 rounds of its
-           first overflow) and factor_s split into pools and uniforms,
+           not.  FactorProbe reads the factor's layer spans: each
+           strict attempt (slack, W, rounds run, round of the first
+           dropped edge, wall time; a discarded attempt must stop within
+           8 rounds of its first overflow) and factor_s split into pools
+           and uniforms,
            engine rounds (host ms per round), finalize, schedules and
            admission.  Then one
            1-lane and one 8-lane preconditioner apply of the handle's
@@ -758,132 +759,72 @@ def phase_factor16(dev):
 
 
 class FactorProbe:
-    """Where a factor's time goes, read from the outside: wraps the
-    factorization's stages (parac._build_pool, _init_engine,
-    _run_engine_batched, _engine_round, _finalize_factor) and the solver's
-    admission (FactorCache.attach, with the build_schedules_batched it
-    calls) with host timers, synchronizing the card at each stage's ends,
-    while the ``with`` block runs.  Works on any tree whose modules keep these names.
+    """Where a factor's time goes, read from the program's own layer
+    spans (``repro_torch.obs.tracing``): a tracer is attached to the
+    process while the ``with`` block runs, and each strict attempt
+    (``parac.attempt``: slack, gather width W, rounds launched, the round
+    a frozen graph stopped at, its first dropped edge, wall time) and the
+    stages inside it are read back from it.  Stage times are host
+    times: nothing synchronizes the card at a stage's ends."""
 
-    Per engine run (one strict attempt) it records the slack, the gather
-    width W, the rounds run and the seconds; the round of the first
-    dropped edge is read from the device after the run (a graph frozen at
-    its first overflow stops its round counter there) or, with
-    ``history``, from a copy of the overflow counter taken after every
-    round (one device op a round; for a tree that does not freeze)."""
-
-    def __init__(self, history: bool = False):
-        self.history = history
-        self.attempts = []
-        self.t = dict(pools_s=0.0, engine_s=0.0, finalize_s=0.0,
-                      schedules_s=0.0, attach_s=0.0)
-
-    @staticmethod
-    def _sync():
-        import torch
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-
-    def _timed(self, key, fn, sync=True):
-        def run(*a, **kw):
-            if sync:
-                self._sync()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            if sync:
-                self._sync()
-            self.t[key] += time.perf_counter() - t0
-            return out
-        return run
+    def __init__(self):
+        self.spans = []
 
     def __enter__(self):
-        import torch
-        from repro_torch.core import parac, solver
-        probe = self
-        self._saved = [(parac, k, getattr(parac, k)) for k in (
-            "_build_pool", "_init_engine", "_run_engine_batched",
-            "_engine_round", "_finalize_factor")]
-        self._saved += [(solver, "build_schedules_batched",
-                         solver.build_schedules_batched),
-                        (solver.FactorCache, "attach",
-                         solver.FactorCache.attach)]
-        build_pool, init_engine, run_engine, engine_round = (
-            getattr(parac, k) for k in ("_build_pool", "_init_engine",
-                                        "_run_engine_batched",
-                                        "_engine_round"))
-        cur = {}
-
-        def build(g, fill_slack, dtype):
-            cur["slack"] = fill_slack
-            return build_pool(g, fill_slack, dtype)
-
-        def init(*a, **kw):
-            cur["W"] = kw["W"]
-            return init_engine(*a, **kw)
-
-        def one_round(s, st):
-            cur["rounds"] += 1
-            engine_round(s, st)
-            if probe.history:
-                cur["hist"].append(s.overflow.clone())
-
-        def run(s, st, **kw):
-            cur.update(rounds=0, hist=[])
-            probe._sync()
-            t0 = time.perf_counter()
-            out = run_engine(s, st, **kw)
-            probe._sync()
-            dt = time.perf_counter() - t0
-            probe.t["engine_s"] += dt
-            ovf = s.overflow.tolist()
-            if probe.history and cur["hist"]:
-                h = torch.stack(cur["hist"]).cpu()
-                first = [int(torch.nonzero(h[:, b] > 0)[0]) + 1
-                         if ovf[b] else None for b in range(len(ovf))]
-            else:
-                first = [int(r) if o else None
-                         for r, o in zip(s.n_rounds.tolist(), ovf)]
-            probe.attempts.append(dict(
-                fill_slack=cur["slack"], W=cur["W"], rounds_run=cur["rounds"],
-                first_overflow=first, overflow=ovf, seconds=dt))
-            return out
-
-        parac._build_pool = self._timed("pools_s", build, sync=False)
-        parac._init_engine = self._timed("pools_s", init)
-        parac._run_engine_batched = run
-        parac._engine_round = one_round
-        parac._finalize_factor = self._timed("finalize_s",
-                                             parac._finalize_factor)
-        solver.build_schedules_batched = self._timed(
-            "schedules_s", solver.build_schedules_batched)
-        solver.FactorCache.attach = self._timed("attach_s",
-                                                solver.FactorCache.attach)
+        from repro_torch.obs import tracing
+        self._tracer = tracing.Tracer()
+        tracing.attach(self._tracer)
         return self
 
     def __exit__(self, *exc):
-        for mod, k, v in self._saved:
-            setattr(mod, k, v)
+        from repro_torch.obs import tracing
+        tracing.detach()
+        self.spans = self._tracer.layer_spans()
         return False
+
+    def seconds(self, *names) -> float:
+        return sum(s.end - s.start for s in self.spans if s.name in names)
+
+    @property
+    def attempts(self) -> list:
+        out = []
+        for s in sorted((s for s in self.spans if s.name == "parac.attempt"),
+                        key=lambda s: s.start):
+            a = s.attrs
+            out.append(dict(
+                fill_slack=a["slack"], W=a["W"], rounds_run=a["launched"],
+                first_overflow=a["rounds"] if a["overflow"] else None,
+                overflow=a["overflow"], members=a["members"], kept=a["kept"],
+                seconds=s.end - s.start))
+        return out
 
     def report(self, tag: str, factor_s: float) -> int:
         """Log the attempts and the split of ``factor_s``; return the
         rounds run."""
-        t = self.t
-        admission = t["attach_s"] - t["schedules_s"]
-        rounds = sum(a["rounds_run"] for a in self.attempts)
-        for k, a in enumerate(self.attempts):
+        attempts = self.attempts
+        rounds = sum(a["rounds_run"] for a in attempts)
+        for k, a in enumerate(attempts):
             log(f"[{tag}] attempt {k + 1}: fill_slack={a['fill_slack']} "
                 f"W={a['W']} rounds run={a['rounds_run']} first overflow at "
-                f"round {a['first_overflow'][0]} (overflow "
-                f"{a['overflow'][0]}) wall {a['seconds']:.3f}s")
-        other = factor_s - (t["pools_s"] + t["engine_s"] + t["finalize_s"]
-                            + t["attach_s"])
+                f"round {a['first_overflow']} (overflow {a['overflow']}) "
+                f"wall {a['seconds']:.3f}s")
+        by_id = {s.sid: s for s in self.spans}
+        sched = self.seconds("trisolve.schedules")
+        in_admit = sum(s.end - s.start for s in self.spans
+                       if s.name == "trisolve.schedules"
+                       and by_id.get(s.parent) is not None
+                       and by_id[s.parent].name == "solver.admit")
+        pools = self.seconds("parac.pools", "parac.init")
+        engine = self.seconds("parac.rounds")
+        fin = self.seconds("parac.finalize")
+        admission = self.seconds("solver.admit") - in_admit
+        other = factor_s - (pools + engine + fin + sched + admission)
         log(f"[{tag}] factor {factor_s:.3f}s = pools and uniforms "
-            f"{t['pools_s']:.3f}s + engine rounds {t['engine_s']:.3f}s "
-            f"({rounds} rounds, host {t['engine_s'] / max(rounds, 1) * 1e3:.3f}"
-            f" ms per round) + finalize and compaction "
-            f"{t['finalize_s']:.3f}s + schedules {t['schedules_s']:.3f}s + "
-            f"admission {admission:.3f}s + other {other:.3f}s")
+            f"{pools:.3f}s + engine rounds {engine:.3f}s "
+            f"({rounds} rounds, host {engine / max(rounds, 1) * 1e3:.3f}"
+            f" ms per round) + finalize and compaction {fin:.3f}s + "
+            f"schedules {sched:.3f}s + admission {admission:.3f}s + other "
+            f"{other:.3f}s (host times of the program's spans)")
         return rounds
 
 
@@ -957,11 +898,11 @@ def check_early_stop(tag: str, probe: FactorProbe) -> None:
     of its first overflow; the kept one dropped nothing."""
     *discarded, kept = probe.attempts
     for a in discarded:
-        first = a["first_overflow"][0]
+        first = a["first_overflow"]
         check(first is not None and 0 <= a["rounds_run"] - first < 8,
               f"{tag}: a discarded attempt ran {a['rounds_run']} rounds, "
               f"its first overflow was at round {first}")
-    check(kept["overflow"] == [0], f"{tag}: the kept attempt overflowed")
+    check(kept["overflow"] == 0, f"{tag}: the kept attempt overflowed")
 
 
 def phase_main(dev, g):
@@ -2525,7 +2466,7 @@ def phase_cluster(dev, g0, main_f, card):
         peak = torch.cuda.max_memory_allocated(dev)
         rounds = sum(a["rounds_run"] for a in probe.attempts)
         for k, a in enumerate(probe.attempts):
-            log(f"[cluster] tier attempt {k + 1}: B={len(a['overflow'])} "
+            log(f"[cluster] tier attempt {k + 1}: B={a['members']} "
                 f"fill_slack={a['fill_slack']} W={a['W']} rounds run="
                 f"{a['rounds_run']} overflow={a['overflow']} wall "
                 f"{a['seconds']:.3f}s")

@@ -2,26 +2,26 @@
 """Where the 64^3 factor's time goes on one GPU, for any tree of the port.
 
     python3 scripts/factor_breakdown.py                 # this checkout
-    python3 scripts/factor_breakdown.py --src OTHER/src --history
+    python3 scripts/factor_breakdown.py --src OTHER/src
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``)
 and factors chip_smoke.py's main cell, grid3d(64,64,64,'uniform',seed=2)
 in nnz-sort order with chunk 256, fill_slack 32, strict retry and key 0,
 through both paths' entry points: ``Solver().factor`` (the main path:
 factor, schedules, admission) and ``factorize_wavefront`` (the library
-path).  Each runs under chip_smoke.FactorProbe, which prints every strict
-attempt (slack, W, rounds run, round of the first dropped edge, wall
-time) and the split of factor_s into pools and uniforms, engine rounds,
-finalize and compaction, schedules and admission, with the host time per
-round.  Then 16 consecutive engine rounds from the middle of the final
-attempt are traced: wall time, device busy time, idle share, host-issued
-ops and device events per round, and the costliest device ops.
+path).  Each runs under chip_smoke.FactorProbe, which reads the
+program's own layer spans (``repro_torch.obs.tracing``) and prints every
+strict attempt (slack, W, rounds run, round of the first dropped edge,
+wall time) and the split of factor_s into pools and uniforms, engine
+rounds, finalize and compaction, schedules and admission, with the host
+time per round.  Then 16 consecutive engine rounds from the middle of the
+final attempt are traced: wall time, device busy time, idle share,
+host-issued ops and device events per round, and the costliest device
+ops.
 
-``--history`` reads the first dropped edge from a copy of the overflow
-counter taken after every round (one device op a round), for a tree whose
-engine runs a discarded attempt to its end; without it the round counter
-of the frozen graph gives it.  To compare two trees, run them in one call
-on one card, in turns (A, B, B, A), each with the same flags.
+To compare two trees, run them in one call on one card, in turns (A, B,
+B, A); both trees must carry the layer spans (``parac.attempt`` and the
+stages inside it), which the probe reads instead of patching the engine.
 """
 from __future__ import annotations
 
@@ -38,8 +38,6 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="directory holding the repro_torch package")
-    ap.add_argument("--history", action="store_true",
-                    help="read the first overflow from a per-round copy")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -71,7 +69,7 @@ def main() -> None:
         runtime.reset_launches()
         torch.cuda.synchronize()
         t0 = time.time()
-        with cs.FactorProbe(history=args.history) as probe:
+        with cs.FactorProbe() as probe:
             if tag == "main":
                 h = Solver(device=dev, **kw).factor(g, key)
                 f = h.factor

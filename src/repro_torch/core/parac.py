@@ -46,6 +46,7 @@ from .column_math import column_uniforms, INVALID_ID
 from .ref_ac import ACFactor, DeviceFactor
 from ..kernels.runtime import resolve_device
 from ..kernels import sample_clique as _sc
+from ..obs.tracing import span
 
 I64 = torch.int64
 
@@ -163,14 +164,17 @@ def _run_engine_batched(s: EngineState, st: EngineStatic, *,
     ``max_rounds`` stops early (a partial run, for tests and for
     capturing a real round's kernel inputs).  Returns the rounds run."""
     done = 0
-    while max_rounds is None or done < max_rounds:
-        k = check_every if max_rounds is None else \
-            min(check_every, max_rounds - done)
-        for _ in range(k):
-            _engine_round(s, st)
-        done += k
-        if not bool(_live(s, st).any()):
-            break
+    with span("parac.rounds"):
+        while max_rounds is None or done < max_rounds:
+            k = check_every if max_rounds is None else \
+                min(check_every, max_rounds - done)
+            for _ in range(k):
+                _engine_round(s, st)
+            done += k
+            with span("parac.check"):
+                live = bool(_live(s, st).any())
+            if not live:
+                break
     return done
 
 
@@ -311,22 +315,32 @@ def factorize_wavefront(g: Graph, key, *, chunk: int = 64,
     slack = fill_slack
     ck = min(chunk, max(n, 1))
     for attempt in range(max_retries + 1):
-        built = _build_pool(g, slack, dtype)
-        P, dmax = built[6], built[7]
-        s, st = _init_engine([built], [n], [np.asarray(key, np.uint32)],
-                             n_pad=n, P_pad=P,
-                             W=max(_next_pow2(dmax), 2), chunk=ck,
-                             device=device,
-                             freeze_on_overflow=strict
-                             and attempt < max_retries)
-        _run_engine_batched(s, st)
-        ovf = int(s.overflow[0])
-        if ovf == 0 or not strict or attempt == max_retries:
-            break
+        with span("parac.attempt") as sp:
+            with span("parac.pools"):
+                built = _build_pool(g, slack, dtype)
+            P, dmax = built[6], built[7]
+            W = max(_next_pow2(dmax), 2)
+            with span("parac.init"):
+                s, st = _init_engine([built], [n],
+                                     [np.asarray(key, np.uint32)],
+                                     n_pad=n, P_pad=P, W=W, chunk=ck,
+                                     device=device,
+                                     freeze_on_overflow=strict
+                                     and attempt < max_retries)
+            launched = _run_engine_batched(s, st)
+            ovf = int(s.overflow[0])
+            kept = ovf == 0 or not strict or attempt == max_retries
+            if sp:
+                sp.set(attempt=attempt, members=1, slack=slack, W=W,
+                       rounds=int(s.n_rounds[0]), launched=launched,
+                       overflow=ovf, kept=int(kept))
+            if kept:
+                stats = dict(rounds=int(s.n_rounds[0]), overflow=ovf,
+                             chunk=chunk, fill_slack=slack, pool_size=P,
+                             dmax=dmax)
+                with span("parac.finalize"):
+                    return _finalize_factor(g, s, st, 0, stats=stats)
         slack *= 2
-    stats = dict(rounds=int(s.n_rounds[0]), overflow=ovf, chunk=chunk,
-                 fill_slack=slack, pool_size=P, dmax=dmax)
-    return _finalize_factor(g, s, st, 0, stats=stats)
 
 
 def factorize_batched(gs: Sequence[Graph], keys, *, chunk: int = 64,
@@ -356,40 +370,56 @@ def factorize_batched(gs: Sequence[Graph], keys, *, chunk: int = 64,
     results: List[Optional[ACFactor]] = [None] * B
     pending = list(range(B))
     for attempt in range(max_retries + 1):
-        built = {i: _build_pool(gs[i], slacks[i], dtype) for i in pending}
-        n_pad = max(max(gs[i].n for i in pending), 1)
-        P_pad = max(max(built[i][6] for i in pending), 1)
-        dmax_pad = max(built[i][7] for i in pending)
-        if bucket:
-            n_pad = _next_pow2(n_pad)
-            P_pad = _next_pow2(P_pad)
-            dmax_pad = _next_pow2(dmax_pad)
-        chunk_eff = min(chunk, n_pad)
-        s, st = _init_engine([built[i] for i in pending],
-                             [gs[i].n for i in pending],
-                             [ks[i] for i in pending], n_pad=n_pad,
-                             P_pad=P_pad, W=max(_next_pow2(dmax_pad), 2),
-                             chunk=chunk_eff, device=device,
-                             freeze_on_overflow=strict
-                             and attempt < max_retries)
-        _run_engine_batched(s, st)
-        ovfs = s.overflow.tolist()
-        retry = []
-        for bi, i in enumerate(pending):
-            ovf = ovfs[bi]
-            if ovf == 0 or not strict or attempt == max_retries:
-                stats = dict(rounds=int(s.n_rounds[bi]), overflow=ovf,
-                             chunk=chunk, fill_slack=slacks[i],
-                             pool_size=int(built[i][6]),
-                             dmax=int(built[i][7]), batched=True,
-                             batch_size=len(pending), n_pad=n_pad,
-                             P_pad=P_pad, dmax_pad=dmax_pad)
-                results[i] = _finalize_factor(gs[i], s, st, bi,
-                                              n_phantom=n_pad - gs[i].n,
-                                              stats=stats)
-            else:
-                slacks[i] *= 2
-                retry.append(i)
+        with span("parac.attempt") as sp:
+            with span("parac.pools"):
+                built = {i: _build_pool(gs[i], slacks[i], dtype)
+                         for i in pending}
+            n_pad = max(max(gs[i].n for i in pending), 1)
+            P_pad = max(max(built[i][6] for i in pending), 1)
+            dmax_pad = max(built[i][7] for i in pending)
+            if bucket:
+                n_pad = _next_pow2(n_pad)
+                P_pad = _next_pow2(P_pad)
+                dmax_pad = _next_pow2(dmax_pad)
+            chunk_eff = min(chunk, n_pad)
+            W = max(_next_pow2(dmax_pad), 2)
+            with span("parac.init"):
+                s, st = _init_engine([built[i] for i in pending],
+                                     [gs[i].n for i in pending],
+                                     [ks[i] for i in pending], n_pad=n_pad,
+                                     P_pad=P_pad, W=W, chunk=chunk_eff,
+                                     device=device,
+                                     freeze_on_overflow=strict
+                                     and attempt < max_retries)
+            launched = _run_engine_batched(s, st)
+            ovfs = s.overflow.tolist()
+            retry = []
+            for bi, i in enumerate(pending):
+                ovf = ovfs[bi]
+                if ovf == 0 or not strict or attempt == max_retries:
+                    stats = dict(rounds=int(s.n_rounds[bi]), overflow=ovf,
+                                 chunk=chunk, fill_slack=slacks[i],
+                                 pool_size=int(built[i][6]),
+                                 dmax=int(built[i][7]), batched=True,
+                                 batch_size=len(pending), n_pad=n_pad,
+                                 P_pad=P_pad, dmax_pad=dmax_pad)
+                    with span("parac.finalize"):
+                        results[i] = _finalize_factor(
+                            gs[i], s, st, bi, n_phantom=n_pad - gs[i].n,
+                            stats=stats)
+                else:
+                    retry.append(i)
+            if sp:
+                # the rounds of the members that dropped an edge (where a
+                # frozen one stopped), else of the whole rung
+                over = s.overflow > 0
+                rounds = s.n_rounds[over] if bool(over.any()) else s.n_rounds
+                sp.set(attempt=attempt, members=len(pending),
+                       slack=slacks[pending[0]], W=W,
+                       rounds=int(rounds.max()), launched=launched,
+                       overflow=sum(ovfs), kept=len(pending) - len(retry))
+        for i in retry:
+            slacks[i] *= 2
         pending = retry
         if not pending:
             break

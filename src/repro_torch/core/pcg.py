@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..obs.tracing import span
 from .laplacian import Graph, laplacian_adjacency, laplacian_matvec_np
 
 
@@ -165,16 +166,19 @@ def fleet_precondition(fa: FleetArrays, fidx: torch.Tensor, R: torch.Tensor,
       (``fcols``/``fvals``, each row's live slots ``flen``); the backward
       panels and ``dinv`` are inert.  The SPAI and flattened-AMG
       families."""
-    if kind == "spmv":
-        return ops.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, R, lens=fa.flen)
-    if kind != "factor":
-        raise ValueError(f"unknown preconditioner apply kind: {kind!r}")
-    Y = ops.trisolve_fleet_(fa.fcols, fa.fvals, fa.flen, fa.frows,
-                            fa.fstart, fidx, ops.interleaved(R), plan=f_plan)
-    Y.mul_(fa.dinv[fidx.long()])
-    ops.trisolve_fleet_(fa.bcols, fa.bvals, fa.blen, fa.brows, fa.bstart,
-                        fidx, Y, plan=b_plan)
-    return Y.contiguous()
+    with span("pcg.precondition"):
+        if kind == "spmv":
+            return ops.ell_spmv_fleet(fa.fcols, fa.fvals, fidx, R,
+                                      lens=fa.flen)
+        if kind != "factor":
+            raise ValueError(f"unknown preconditioner apply kind: {kind!r}")
+        Y = ops.trisolve_fleet_(fa.fcols, fa.fvals, fa.flen, fa.frows,
+                                fa.fstart, fidx, ops.interleaved(R),
+                                plan=f_plan)
+        Y.mul_(fa.dinv[fidx.long()])
+        ops.trisolve_fleet_(fa.bcols, fa.bvals, fa.blen, fa.brows, fa.bstart,
+                            fidx, Y, plan=b_plan)
+        return Y.contiguous()
 
 
 def project_lanes(Y: torch.Tensor, nvalid: torch.Tensor) -> torch.Tensor:
@@ -334,19 +338,20 @@ def pcg_fleet_init(fa: FleetArrays, fidx, B, tol, maxiter, *,
     """Set up the fleet PCG carry for columns ``B`` ``(L, n_pad)`` (zero
     past each factor's true n); lane ``l`` solves against factor
     ``fidx[l]`` with its own ``tol``/``maxiter``."""
-    dev = B.device
-    fidx = torch.as_tensor(fidx, dtype=torch.int32, device=dev)
-    L = B.shape[0]
-    tol = torch.as_tensor(tol, dtype=torch.float32, device=dev).expand(L)
-    base = pcg_batched_init(
-        partial(fleet_matvec, fa, fidx),
-        partial(fleet_precondition, fa, fidx, f_plan=f_plan,
-                b_plan=b_plan, kind=kind),
-        B, tol=tol, project=project, nvalid=fa.nvalid[fidx.long()])
-    return FleetPCGState(
-        *base, fidx=fidx, tol=tol.contiguous(),
-        maxiter=torch.as_tensor(maxiter, dtype=torch.int32,
-                                device=dev).expand(L).contiguous())
+    with span("pcg.init"):
+        dev = B.device
+        fidx = torch.as_tensor(fidx, dtype=torch.int32, device=dev)
+        L = B.shape[0]
+        tol = torch.as_tensor(tol, dtype=torch.float32, device=dev).expand(L)
+        base = pcg_batched_init(
+            partial(fleet_matvec, fa, fidx),
+            partial(fleet_precondition, fa, fidx, f_plan=f_plan,
+                    b_plan=b_plan, kind=kind),
+            B, tol=tol, project=project, nvalid=fa.nvalid[fidx.long()])
+        return FleetPCGState(
+            *base, fidx=fidx, tol=tol.contiguous(),
+            maxiter=torch.as_tensor(maxiter, dtype=torch.int32,
+                                    device=dev).expand(L).contiguous())
 
 
 def pcg_fleet_body(fa: FleetArrays, s: FleetPCGState, *,
@@ -355,12 +360,13 @@ def pcg_fleet_body(fa: FleetArrays, s: FleetPCGState, *,
                    project: bool = True) -> FleetPCGState:
     """One frozen-lane fleet PCG iteration: lane ``l`` multiplies by and
     preconditions with factor ``fidx[l]`` of the stack."""
-    return _pcg_batched_body(
-        partial(fleet_matvec, fa, s.fidx),
-        partial(fleet_precondition, fa, s.fidx, f_plan=f_plan,
-                b_plan=b_plan, kind=kind),
-        tol=s.tol, maxiter=s.maxiter, project=project,
-        nvalid=fa.nvalid[s.fidx.long()])(s)
+    with span("pcg.iter"):
+        return _pcg_batched_body(
+            partial(fleet_matvec, fa, s.fidx),
+            partial(fleet_precondition, fa, s.fidx, f_plan=f_plan,
+                    b_plan=b_plan, kind=kind),
+            tol=s.tol, maxiter=s.maxiter, project=project,
+            nvalid=fa.nvalid[s.fidx.long()])(s)
 
 
 def pcg_fleet_step(fa: FleetArrays, state: FleetPCGState, *, k: int,
@@ -370,7 +376,9 @@ def pcg_fleet_step(fa: FleetArrays, state: FleetPCGState, *, k: int,
     """Advance every active lane by up to ``k`` iterations (early exit
     when all lanes freeze).  Step slicing is exact."""
     for _ in range(k):
-        if not bool(state.active.any()):
+        with span("pcg.check"):
+            active = bool(state.active.any())
+        if not active:
             break
         state = pcg_fleet_body(fa, state, f_plan=f_plan,
                                b_plan=b_plan, kind=kind, project=project)
@@ -385,10 +393,13 @@ def pcg_fleet_solve(fa: FleetArrays, fidx, B, tol, maxiter, *,
     (one host read of ``any(active)`` per iteration)."""
     state = pcg_fleet_init(fa, fidx, B, tol, maxiter, f_plan=f_plan,
                            b_plan=b_plan, kind=kind, project=project)
-    while bool(state.active.any()):
+    while True:
+        with span("pcg.check"):
+            active = bool(state.active.any())
+        if not active:
+            return state
         state = pcg_fleet_body(fa, state, f_plan=f_plan,
                                b_plan=b_plan, kind=kind, project=project)
-    return state
 
 
 def pcg_fleet_result(state: FleetPCGState, n: int) -> PCGResult:

@@ -46,6 +46,7 @@ import torch
 from ..kernels.runtime import pad_k, resolve_device
 from ..kernels.spmv import cut_plan, sweep_plan
 from ..obs.flight import NULL_FLIGHT
+from ..obs.tracing import span
 from .laplacian import Graph, laplacian_adjacency
 from .ref_ac import ACFactor, DeviceFactor
 from .parac import factorize_wavefront, factorize_batched, _next_pow2
@@ -612,25 +613,30 @@ class PreconditionerHandle:
               project: bool = True) -> PCGResult:
         """PCG-solve ``L x = b``: ``B`` is ``(n,)`` for one rhs or
         ``(nrhs, n)`` for a batch (every column a lane of this factor)."""
-        B = torch.as_tensor(B, dtype=torch.float32, device=self.device)
-        if B.dim() not in (1, 2) or B.shape[-1] != self.n:
-            raise ValueError(f"rhs must be (n,) or (nrhs, n) with n={self.n}, "
-                             f"got {tuple(B.shape)}")
-        B2 = B[None] if B.dim() == 1 else B
-        L = B2.shape[0]
-        f_plan, b_plan = self.plans()
-        state = pcg_fleet_solve(
-            self.fleet.arrays, self._fidx(L), self._pad(B2),
-            torch.full((L,), tol, dtype=torch.float32, device=self.device),
-            torch.full((L,), maxiter, dtype=torch.int32, device=self.device),
-            f_plan=f_plan, b_plan=b_plan, kind=self.fleet.kind,
-            project=project)
-        res = pcg_fleet_result(state, self.n)
-        if B.dim() == 1:
-            return PCGResult(x=res.x[0], iters=res.iters[0],
-                             relres=res.relres[0],
-                             converged=res.converged[0])
-        return res
+        with span("pcg.solve") as sp:
+            B = torch.as_tensor(B, dtype=torch.float32, device=self.device)
+            if B.dim() not in (1, 2) or B.shape[-1] != self.n:
+                raise ValueError(f"rhs must be (n,) or (nrhs, n) with "
+                                 f"n={self.n}, got {tuple(B.shape)}")
+            B2 = B[None] if B.dim() == 1 else B
+            L = B2.shape[0]
+            f_plan, b_plan = self.plans()
+            state = pcg_fleet_solve(
+                self.fleet.arrays, self._fidx(L), self._pad(B2),
+                torch.full((L,), tol, dtype=torch.float32,
+                           device=self.device),
+                torch.full((L,), maxiter, dtype=torch.int32,
+                           device=self.device),
+                f_plan=f_plan, b_plan=b_plan, kind=self.fleet.kind,
+                project=project)
+            res = pcg_fleet_result(state, self.n)
+            if sp:
+                sp.set(lanes=L, iters=int(res.iters.max()))
+            if B.dim() == 1:
+                return PCGResult(x=res.x[0], iters=res.iters[0],
+                                 relres=res.relres[0],
+                                 converged=res.converged[0])
+            return res
 
 
 FactorHandle = PreconditionerHandle
@@ -785,15 +791,18 @@ class FactorCache:
             return got
         self.misses += 1
         t0 = time.perf_counter()
-        if family == "ac":
-            f = factorize_wavefront(
-                g, key, chunk=self.chunk, fill_slack=self.fill_slack,
-                strict=self.strict, max_retries=self.max_retries,
-                dtype=self.dtype, device=self.device, **params)
-        else:
-            f = fam.build(g, key, dtype=self.dtype, **params)
-        handle = self.attach(g, f, graph_id=gid, family=family,
-                             ttl_s=ttl_s, max_age_ticks=max_age_ticks)
+        with span("solver.factor") as sp:
+            if sp:
+                sp.set(members=1, family=family)
+            if family == "ac":
+                f = factorize_wavefront(
+                    g, key, chunk=self.chunk, fill_slack=self.fill_slack,
+                    strict=self.strict, max_retries=self.max_retries,
+                    dtype=self.dtype, device=self.device, **params)
+            else:
+                f = fam.build(g, key, dtype=self.dtype, **params)
+            handle = self.attach(g, f, graph_id=gid, family=family,
+                                 ttl_s=ttl_s, max_age_ticks=max_age_ticks)
         handle.construct_s = time.perf_counter() - t0
         return handle
 
@@ -820,15 +829,20 @@ class FactorCache:
         fleet = {gid: self._handles[gid] for gid in gids
                  if gid in self._handles}
         if todo:
-            fs, scheds = factorize_batched(
-                [gs[i] for i in todo], [keys[i] for i in todo],
-                chunk=self.chunk, fill_slack=self.fill_slack,
-                strict=self.strict, max_retries=self.max_retries,
-                dtype=self.dtype, with_schedules=True, device=self.device)
-            fleet.update(self._attach_many(
-                [(gs[i], f, sch, gids[i], "ac")
-                 for i, f, sch in zip(todo, fs, scheds)],
-                ttl_s=ttl_s, max_age_ticks=max_age_ticks))
+            with span("solver.factor") as sp:
+                if sp:
+                    sp.set(members=len(todo), family="ac")
+                fs, scheds = factorize_batched(
+                    [gs[i] for i in todo], [keys[i] for i in todo],
+                    chunk=self.chunk, fill_slack=self.fill_slack,
+                    strict=self.strict, max_retries=self.max_retries,
+                    dtype=self.dtype, with_schedules=True,
+                    device=self.device)
+                with span("solver.admit"):
+                    fleet.update(self._attach_many(
+                        [(gs[i], f, sch, gids[i], "ac")
+                         for i, f, sch in zip(todo, fs, scheds)],
+                        ttl_s=ttl_s, max_age_ticks=max_age_ticks))
         for gid in gids:
             if gid in self._handles:
                 self._handles.move_to_end(gid)
@@ -845,9 +859,10 @@ class FactorCache:
         admit it to its fleet — no re-construction."""
         gid = graph_id if graph_id is not None else graph_fingerprint(
             g, family=family)
-        (_, handle), = self._attach_many([(g, f, schedules, gid, family)],
-                                         ttl_s=ttl_s,
-                                         max_age_ticks=max_age_ticks)
+        with span("solver.admit"):
+            (_, handle), = self._attach_many(
+                [(g, f, schedules, gid, family)], ttl_s=ttl_s,
+                max_age_ticks=max_age_ticks)
         return handle
 
     def adopt(self, g: Graph, f, *, graph_id: str,

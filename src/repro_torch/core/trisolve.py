@@ -29,6 +29,7 @@ from ..kernels.spmv import SweepWalk, sweep_walk
 from ..kernels.runtime import resolve_device
 from .ref_ac import ACFactor, DeviceFactor
 from .parac import _next_pow2, _run_ranks
+from ..obs.tracing import span
 
 I64 = torch.int64
 
@@ -216,44 +217,45 @@ def build_schedules_batched(devs: List[DeviceFactor]
     backward: dst=k, src=i."""
     if not devs:
         return []
-    B = len(devs)
-    dev = devs[0].device
-    n_bat = _next_pow2(max(d.n for d in devs))
-    E_bat = max(_next_pow2(max(d.nnz for d in devs)), 1)
-    DST = torch.full((2 * B, E_bat), n_bat, dtype=I64, device=dev)
-    SRC = torch.zeros((2 * B, E_bat), dtype=I64, device=dev)
-    VAL = torch.zeros((2 * B, E_bat), dtype=torch.float32, device=dev)
-    for b, d in enumerate(devs):
-        counts = torch.diff(d.col_ptr.to(I64))
-        cols_of = torch.repeat_interleave(
-            torch.arange(d.n, dtype=I64, device=dev), counts,
-            output_size=d.nnz)
-        rows = d.rows.to(I64)
-        DST[b, :d.nnz], SRC[b, :d.nnz] = rows, cols_of
-        DST[B + b, :d.nnz], SRC[B + b, :d.nnz] = cols_of, rows
-        VAL[b, :d.nnz] = VAL[B + b, :d.nnz] = d.vals
-    levels = _propagate_levels_fleet(DST, SRC, n=n_bat)
-    indeg = torch.zeros((2 * B, n_bat + 1), dtype=torch.int32,
-                        device=dev).scatter_add_(
-        1, DST, torch.ones_like(DST, dtype=torch.int32))[:, :n_bat]
-    kmax = indeg.max(dim=1).values.tolist()
-    nlv = levels.max(dim=1).values.tolist()
-    out: List[Tuple[PackedSchedule, PackedSchedule]] = []
-    for b, d in enumerate(devs):
-        n_pad = _next_pow2(d.n)
-        halves = []
-        for row in (b, B + b):                 # forward, then backward
-            K = max(_next_pow2(int(kmax[row])), 1)
-            cols, vals, row_len = _pack_row_panels(
-                torch.where(DST[row] < n_pad, DST[row], n_pad), SRC[row],
-                VAL[row], n=n_pad, K=K)
-            halves.append(PackedSchedule(
-                n=d.n, n_pad=n_pad, n_levels=int(nlv[row]) + 1, K=K,
-                cols=cols, vals=vals,
-                level_of=levels[row, :n_pad].contiguous(),
-                row_len=row_len))
-        out.append((halves[0], halves[1]))
-    return out
+    with span("trisolve.schedules"):
+        B = len(devs)
+        dev = devs[0].device
+        n_bat = _next_pow2(max(d.n for d in devs))
+        E_bat = max(_next_pow2(max(d.nnz for d in devs)), 1)
+        DST = torch.full((2 * B, E_bat), n_bat, dtype=I64, device=dev)
+        SRC = torch.zeros((2 * B, E_bat), dtype=I64, device=dev)
+        VAL = torch.zeros((2 * B, E_bat), dtype=torch.float32, device=dev)
+        for b, d in enumerate(devs):
+            counts = torch.diff(d.col_ptr.to(I64))
+            cols_of = torch.repeat_interleave(
+                torch.arange(d.n, dtype=I64, device=dev), counts,
+                output_size=d.nnz)
+            rows = d.rows.to(I64)
+            DST[b, :d.nnz], SRC[b, :d.nnz] = rows, cols_of
+            DST[B + b, :d.nnz], SRC[B + b, :d.nnz] = cols_of, rows
+            VAL[b, :d.nnz] = VAL[B + b, :d.nnz] = d.vals
+        levels = _propagate_levels_fleet(DST, SRC, n=n_bat)
+        indeg = torch.zeros((2 * B, n_bat + 1), dtype=torch.int32,
+                            device=dev).scatter_add_(
+            1, DST, torch.ones_like(DST, dtype=torch.int32))[:, :n_bat]
+        kmax = indeg.max(dim=1).values.tolist()
+        nlv = levels.max(dim=1).values.tolist()
+        out: List[Tuple[PackedSchedule, PackedSchedule]] = []
+        for b, d in enumerate(devs):
+            n_pad = _next_pow2(d.n)
+            halves = []
+            for row in (b, B + b):                 # forward, then backward
+                K = max(_next_pow2(int(kmax[row])), 1)
+                cols, vals, row_len = _pack_row_panels(
+                    torch.where(DST[row] < n_pad, DST[row], n_pad), SRC[row],
+                    VAL[row], n=n_pad, K=K)
+                halves.append(PackedSchedule(
+                    n=d.n, n_pad=n_pad, n_levels=int(nlv[row]) + 1, K=K,
+                    cols=cols, vals=vals,
+                    level_of=levels[row, :n_pad].contiguous(),
+                    row_len=row_len))
+            out.append((halves[0], halves[1]))
+        return out
 
 
 # ---------------------------------------------------------------------------

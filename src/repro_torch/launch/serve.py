@@ -468,9 +468,10 @@ def main(argv=None):
                          "port for the replay's lifetime "
                          "(curl localhost:PORT/metrics)")
     ap.add_argument("--trace-json", default=None,
-                    help="record per-request lifecycle spans and write "
-                         "Chrome trace_event JSON here "
-                         "(chrome://tracing / Perfetto)")
+                    help="record per-request lifecycle spans and the "
+                         "layer spans (factor stages, PCG iterations, "
+                         "engine ticks) and write Chrome trace_event JSON "
+                         "here (chrome://tracing / Perfetto)")
     ap.add_argument("--postmortem-dir", default=None,
                     help="arm the flight recorder: structured lifecycle "
                          "events ring-buffer in memory, and any incident "
@@ -482,9 +483,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from repro_torch.obs import MetricsRegistry, Tracer, maybe_serve
+    from repro_torch.obs import tracing
     registry = MetricsRegistry() \
         if (args.metrics_port is not None) else None
     tracer = Tracer() if args.trace_json else None
+    if tracer is not None:
+        tracing.attach(tracer)      # the layer spans land in the same file
     flight = health = None
     if args.postmortem_dir or registry is not None:
         from repro_torch.obs import FlightRecorder, HealthMonitor
@@ -510,6 +514,8 @@ def main(argv=None):
             metrics=registry, tracer=tracer, flight=flight, health=health,
             device=args.device)
     finally:
+        if tracer is not None:
+            tracing.detach()
         if server is not None:
             server.close()
         if flight is not None:

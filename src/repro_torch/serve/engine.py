@@ -77,7 +77,7 @@ from ..core.pcg import (FleetArrays, FleetPCGState, _norm, pcg_fleet_init,
                         pcg_fleet_step)
 from ..obs.flight import NULL_FLIGHT
 from ..obs.registry import NULL as _NULL_METRICS
-from ..obs.tracing import trace_from_request
+from ..obs.tracing import span, trace_from_request
 from .admission import AdmissionPolicy, FIFOAdmission
 
 # process-wide trace-id sequence: stamped once per request at
@@ -628,60 +628,73 @@ class SolveEngine:
         ``iters_per_tick`` PCG iterations (one step per bucket — all
         factors in the bucket ride the same call), retire finished lanes.
         Returns requests completed this tick."""
-        t_tick0 = self._clock()
-        self._resync_buckets()
-        self._admit()
-        if self.admission.evict_hopeless:
-            self._evict_hopeless()
-        done: List[SolveRequest] = []
-        for bkey in sorted(self._buckets):
-            bl = self._buckets[bkey]
-            occ = [i for i, lane in enumerate(self.lanes)
-                   if lane is not None and lane.bucket is bl]
-            if not occ:
-                continue
-            if bl.n_active > 0:
-                fl = bl.fleet
-                self._signature("step", _shapes(fl.arrays, bl.state)
-                                + self._statics(fl))
-                handles = [self.lanes[i].req._handle for i in occ]
-                bl.state = self._step_fn(
-                    fl.arrays, bl.state, k=self.iters_per_tick,
-                    **self._plans(fl, handles), kind=fl.kind)
-                self._account_sweeps(bl, handles)
-            active = bl.state.active.cpu().numpy()  # (slots,) flags only
-            frozen = [i for i in occ if not active[i]]
-            bl.n_active = int(active[occ].sum())
-            if frozen:
-                done.extend(self._retire(bl, frozen))
-        self._unpin_idle()
-        self.ticks += 1
-        self.cache.advance_ticks(1)
-        if self.tracer is not None:
-            # first host-side timestamp after a lane's first step call —
-            # only when tracing is on (the stamp loop is pure host work,
-            # but a trace nobody asked for is still overhead)
-            t_first = self._clock()
-            for lane in self.lanes:
-                if lane is not None and lane.req.first_tick_time == 0.0:
-                    lane.req.first_tick_time = t_first
-        # running *minimum* tick duration — the deadline-eviction lower
-        # bound for "one more tick".  A minimum (not a mean) is the
-        # safe estimator: compile-heavy first ticks must not inflate it
-        # and spuriously evict meetable requests; underestimating only
-        # delays eviction until the deadline has truly passed.  (An
-        # injected constant clock keeps this at 0, so tests evict
-        # exactly when the deadline passes.)
-        dur = self._clock() - t_tick0
-        self._est_tick_s = dur if self._est_tick_s == 0.0 else \
-            min(self._est_tick_s, dur)
-        self._m_ticks.inc()
-        self._m_tick_s.observe(dur)
-        self._m_queue.set(len(self.queue))
-        self._m_lanes.set(sum(l is not None for l in self.lanes))
-        if self.metrics is not None:
-            self.metrics.maybe_sample(self._clock())
-        return done
+        with span("engine.tick") as sp:
+            t_tick0 = self._clock()
+            admitted0 = self.admitted_reqs
+            with span("engine.resync"):
+                self._resync_buckets()
+            with span("engine.admit"):
+                self._admit()
+            if self.admission.evict_hopeless:
+                self._evict_hopeless()
+            done: List[SolveRequest] = []
+            stepped = 0
+            for bkey in sorted(self._buckets):
+                bl = self._buckets[bkey]
+                occ = [i for i, lane in enumerate(self.lanes)
+                       if lane is not None and lane.bucket is bl]
+                if not occ:
+                    continue
+                if bl.n_active > 0:
+                    fl = bl.fleet
+                    self._signature("step", _shapes(fl.arrays, bl.state)
+                                    + self._statics(fl))
+                    handles = [self.lanes[i].req._handle for i in occ]
+                    with span("engine.step"):
+                        bl.state = self._step_fn(
+                            fl.arrays, bl.state, k=self.iters_per_tick,
+                            **self._plans(fl, handles), kind=fl.kind)
+                    stepped += 1
+                    self._account_sweeps(bl, handles)
+                with span("engine.flags"):
+                    active = bl.state.active.cpu().numpy()  # (slots,) only
+                frozen = [i for i in occ if not active[i]]
+                bl.n_active = int(active[occ].sum())
+                if frozen:
+                    with span("engine.retire"):
+                        done.extend(self._retire(bl, frozen))
+            self._unpin_idle()
+            self.ticks += 1
+            self.cache.advance_ticks(1)
+            if self.tracer is not None:
+                # first host-side timestamp after a lane's first step call —
+                # only when tracing is on (the stamp loop is pure host work,
+                # but a trace nobody asked for is still overhead)
+                t_first = self._clock()
+                for lane in self.lanes:
+                    if lane is not None and lane.req.first_tick_time == 0.0:
+                        lane.req.first_tick_time = t_first
+            # running *minimum* tick duration — the deadline-eviction lower
+            # bound for "one more tick".  A minimum (not a mean) is the
+            # safe estimator: compile-heavy first ticks must not inflate it
+            # and spuriously evict meetable requests; underestimating only
+            # delays eviction until the deadline has truly passed.  (An
+            # injected constant clock keeps this at 0, so tests evict
+            # exactly when the deadline passes.)
+            dur = self._clock() - t_tick0
+            self._est_tick_s = dur if self._est_tick_s == 0.0 else \
+                min(self._est_tick_s, dur)
+            self._m_ticks.inc()
+            self._m_tick_s.observe(dur)
+            self._m_queue.set(len(self.queue))
+            self._m_lanes.set(sum(l is not None for l in self.lanes))
+            if self.metrics is not None:
+                self.metrics.maybe_sample(self._clock())
+            if sp:
+                sp.set(stepped=stepped, retired=len(done),
+                       admitted=self.admitted_reqs - admitted0,
+                       lanes=sum(l is not None for l in self.lanes))
+            return done
 
     def _account_sweeps(self, bl: _BucketLanes, handles) -> None:
         """Host-side mirror of one stepped bucket's trisolve sweep work,

@@ -56,6 +56,7 @@ import torch
 
 from ..obs.flight import NULL_FLIGHT
 from ..obs.registry import NULL as _NULL_METRICS
+from ..obs.tracing import span
 
 from .engine import EngineStats, SolveEngine, SolveRequest, make_request
 
@@ -288,15 +289,21 @@ class SolveFrontend:
               else contextlib.nullcontext()):
             self._drive()
 
+    def _idle(self) -> bool:
+        """Nothing for the driver to do (read under ``_work``)."""
+        return not (self._ingress or self._control or self.engine.busy
+                    or self._closed)
+
     def _drive(self) -> None:
         # sole owner of the engine; `_futures` is touched only here
         # (dict get/set/pop are GIL-atomic, so stats/drain may peek)
         eng = self.engine
         while True:
             with self._work:
-                while (not self._ingress and not self._control
-                       and not eng.busy and not self._closed):
-                    self._work.wait(timeout=self.idle_wait_s)
+                if self._idle():
+                    with span("frontend.wait"):
+                        while self._idle():
+                            self._work.wait(timeout=self.idle_wait_s)
                 if self._closed:
                     # close(drain=True) already waited for idle; a hard
                     # close abandons in-flight work deliberately
@@ -312,7 +319,8 @@ class SolveFrontend:
             for fn, args, kw, cfut in control:
                 t0 = time.monotonic()
                 try:
-                    res = fn(*args, **kw)
+                    with span("frontend.control"):
+                        res = fn(*args, **kw)
                 except Exception as exc:
                     if not cfut.done():
                         cfut.set_exception(exc)
@@ -331,16 +339,9 @@ class SolveFrontend:
                         self._control_inflight -= 1
                     self._m_control_s.observe(dt)
             try:
-                for req, fut in batch:
-                    try:
-                        eng.submit(req)
-                    except Exception as exc:  # unknown graph / bad shape
-                        self.failed += 1
-                        self._m_failed.inc()
-                        if not fut.done():    # caller may have cancelled
-                            fut.set_exception(exc)
-                    else:
-                        self._futures[req] = fut
+                if batch:
+                    with span("frontend.ingress"):
+                        self._forward(batch)
                 if eng.busy:
                     for done in eng.tick():
                         fut = self._futures.pop(done, None)
@@ -385,6 +386,19 @@ class SolveFrontend:
             if not cfut.done():
                 cfut.set_exception(RuntimeError(why))
         self._control.clear()
+
+    def _forward(self, batch) -> None:
+        """Hand an ingress batch to the engine (driver thread)."""
+        for req, fut in batch:
+            try:
+                self.engine.submit(req)
+            except Exception as exc:  # unknown graph / bad shape
+                self.failed += 1
+                self._m_failed.inc()
+                if not fut.done():    # caller may have cancelled
+                    fut.set_exception(exc)
+            else:
+                self._futures[req] = fut
 
     # -- lifecycle ----------------------------------------------------------
     def drain(self, timeout: Optional[float] = None) -> bool:
