@@ -640,11 +640,11 @@ def fused_rounds_64(dev, g):
     import torch
     from repro_torch.core import parac
     from repro_torch.core.column_math import key_from_seed
-    built = parac._build_pool(g, 256, np.float32)
-    s, st = parac._init_engine([built], [g.n], [key_from_seed(0)], n_pad=g.n,
-                               P_pad=built[6],
-                               W=max(parac._next_pow2(built[7]), 2),
-                               chunk=256, device=dev)
+    built = parac._build_pool(parac._pool_edges(g, np.float32, dev), 256)
+    s, st = parac._init_engine([built], [key_from_seed(0)], n_pad=g.n,
+                               P_pad=built.P,
+                               W=max(parac._next_pow2(built.dmax), 2),
+                               chunk=256)
     want = {"first": False, "fill > 32": False, "fill > 64": False,
             "middle": False, "last": False}
     wide = [0, 0]
@@ -688,13 +688,13 @@ def fused_rounds_batch(dev):
     from repro_torch.data import graphs
     gs = [permuted(graphs.SUITE["grid3d_uniform_16"]()),
           permuted(graphs.grid2d(64, 64, seed=1))]
-    built = [parac._build_pool(g, 64, np.float32) for g in gs]
+    built = [parac._build_pool(parac._pool_edges(g, np.float32, dev), 64)
+             for g in gs]
     s, st = parac._init_engine(
-        built, [g.n for g in gs], [key_from_seed(0), key_from_seed(1)],
+        built, [key_from_seed(0), key_from_seed(1)],
         n_pad=parac._next_pow2(max(g.n for g in gs)),
-        P_pad=parac._next_pow2(max(b[6] for b in built)),
-        W=max(parac._next_pow2(max(b[7] for b in built)), 2), chunk=256,
-        device=dev)
+        P_pad=parac._next_pow2(max(b.P for b in built)),
+        W=max(parac._next_pow2(max(b.dmax for b in built)), 2), chunk=256)
     for r in range(161):
         if r % 40 == 0:
             live, w32, w64 = round_against_plain(s, st, f"B=2 round {r}")
@@ -713,11 +713,11 @@ def phase_clique(dev, g64):
     clique_random_rows(dev)
     # rows of a real engine round: grid3d 16^3 after 40 rounds
     g = permuted(graphs.SUITE["grid3d_uniform_16"]())
-    built = parac._build_pool(g, 32, np.float32)
-    s, st = parac._init_engine([built], [g.n], [key_from_seed(0)], n_pad=g.n,
-                               P_pad=built[6],
-                               W=max(parac._next_pow2(built[7]), 2),
-                               chunk=256, device=dev)
+    built = parac._build_pool(parac._pool_edges(g, np.float32, dev), 32)
+    s, st = parac._init_engine([built], [key_from_seed(0)], n_pad=g.n,
+                               P_pad=built.P,
+                               W=max(parac._next_pow2(built.dmax), 2),
+                               chunk=256)
     parac._run_engine_batched(s, st, max_rounds=40)
     cand, ok = parac._round_ready(s.elim, s.dep, parac._live(s, st),
                                   chunk=256)
@@ -4577,11 +4577,12 @@ def phase_timing(dev, main, spmv_errs):
     # sample_clique at the main path's shapes: one real round of the
     # main graph's engine at the slack the strict retry settled on
     f = h.factor
-    built = parac._build_pool(g, f.stats["fill_slack"], np.float32)
-    s, st = parac._init_engine([built], [g.n], [key_from_seed(0)], n_pad=g.n,
-                               P_pad=built[6],
-                               W=max(parac._next_pow2(built[7]), 2),
-                               chunk=256, device=dev)
+    built = parac._build_pool(parac._pool_edges(g, np.float32, dev),
+                              f.stats["fill_slack"])
+    s, st = parac._init_engine([built], [key_from_seed(0)], n_pad=g.n,
+                               P_pad=built.P,
+                               W=max(parac._next_pow2(built.dmax), 2),
+                               chunk=256)
     parac._run_engine_batched(s, st, max_rounds=max(f.stats["rounds"] // 2,
                                                     1))
     cand, ok = parac._round_ready(s.elim, s.dep, parac._live(s, st),

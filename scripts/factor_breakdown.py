@@ -14,14 +14,18 @@ program's own layer spans (``repro_torch.obs.tracing``) and prints every
 strict attempt (slack, W, rounds run, round of the first dropped edge,
 wall time) and the split of factor_s into pools and uniforms, engine
 rounds, finalize and compaction, schedules and admission, with the host
-time per round.  Then 16 consecutive engine rounds from the middle of the
-final attempt are traced: wall time, device busy time, idle share,
-host-issued ops and device events per round, and the costliest device
-ops.
+time per round.  Then the library path's rungs are built again, each stage
+timed apart between device synchronizes: the edges' upload and ordering
+(once), and for each rung the pools written on the device and the
+``column_uniforms`` table.  Last, 16 consecutive engine rounds from the
+middle of the final attempt are traced: wall time, device busy time,
+idle share, host-issued ops and device events per round, and the
+costliest device ops.
 
 To compare two trees, run them in one call on one card, in turns (A, B,
 B, A); both trees must carry the layer spans (``parac.attempt`` and the
-stages inside it), which the probe reads instead of patching the engine.
+stages inside it), which the probe reads instead of patching the engine,
+and build their pools on the device (``parac._pool_edges``).
 """
 from __future__ import annotations
 
@@ -34,6 +38,51 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def prep_stages(parac, g, key, slacks, dev):
+    """Print the factor's preparation of each rung in ``slacks`` as two
+    stages timed apart between device synchronizes, the pools written on
+    the device and the ``column_uniforms`` table (timed by wrapping the
+    engine's reference to it), after the edges' one upload and ordering.
+    Returns the last rung's pool."""
+    import numpy as np
+    import torch
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    real = parac.column_uniforms
+    uniform_s = [0.0]
+
+    def timed(*a, **k):
+        t = clock()
+        out = real(*a, **k)
+        uniform_s[0] += clock() - t
+        return out
+
+    t = clock()
+    edges = parac._pool_edges(g, np.float32, dev)
+    print(f"[stages] edges uploaded and ordered: {g.m} edges "
+          f"{clock() - t:.4f}s", flush=True)
+    parac.column_uniforms = timed
+    try:
+        for slack in slacks:
+            uniform_s[0] = 0.0
+            t = clock()
+            built = parac._build_pool(edges, slack)
+            s, st = parac._init_engine(
+                [built], [key], n_pad=g.n, P_pad=built.P,
+                W=max(parac._next_pow2(built.dmax), 2), chunk=256)
+            total = clock() - t
+            print(f"[stages] fill_slack={slack} P={built.P} W={st.W}: "
+                  f"device pool build {total - uniform_s[0]:.4f}s, "
+                  f"column_uniforms {uniform_s[0]:.4f}s", flush=True)
+            del s, st
+    finally:
+        parac.column_uniforms = real
+    return built
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
@@ -44,7 +93,6 @@ def main() -> None:
         sys.exit("no CUDA device: this script measures on a GPU")
     sys.path.insert(0, str(Path(args.src).resolve()))
     sys.path.insert(1, str(ROOT))
-    import numpy as np
     import chip_smoke as cs
     from repro_torch.core import parac
     from repro_torch.core.column_math import key_from_seed
@@ -80,11 +128,11 @@ def main() -> None:
         print(f"[{tag}] rounds={f.stats['rounds']} "
               f"fill_slack={f.stats['fill_slack']} nnz={f.nnz} launches "
               f"{dict(runtime.LAUNCHES)}", flush=True)
-    built = parac._build_pool(g, f.stats["fill_slack"], np.float32)
-    s, st = parac._init_engine([built], [g.n], [key], n_pad=g.n,
-                               P_pad=built[6],
-                               W=max(parac._next_pow2(built[7]), 2),
-                               chunk=256, device=dev)
+    slacks = [a["fill_slack"] for a in probe.attempts]
+    built = prep_stages(parac, g, key, slacks, dev)
+    s, st = parac._init_engine([built], [key], n_pad=g.n, P_pad=built.P,
+                               W=max(parac._next_pow2(built.dmax), 2),
+                               chunk=256)
     start = f.stats["rounds"] // 2
     parac._run_engine_batched(s, st, max_rounds=start)
     cs.log_engine_rounds("rounds", start, cs.engine_rounds_busy(s, st))

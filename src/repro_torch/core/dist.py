@@ -34,7 +34,7 @@ import torch.distributed as dist
 
 from .laplacian import Graph
 from .parac import (EngineState, _build_pool, _finalize_factor, _init_engine,
-                    _next_pow2, _run_engine_batched)
+                    _next_pow2, _pool_edges, _run_engine_batched)
 from .pcg import PCGResult, _laplacian_operator, pcg
 from .ref_ac import ACFactor
 
@@ -149,13 +149,12 @@ def batched_factorize(g: Graph, keys, mesh, *, chunk: int = 256,
         raise ValueError(f"{B} keys do not split over {n_sh} shards")
     per = B // n_sh
     n = g.n
-    built = _build_pool(g, fill_slack, np.float32)
-    P, dmax = built[6], built[7]
-    s, st = _init_engine([built] * per, [n] * per,
-                         list(keys[r * per:(r + 1) * per]), n_pad=n,
-                         P_pad=P, W=max(_next_pow2(dmax), 2),
-                         chunk=min(chunk, max(n, 1)),
-                         device=_mesh_device(mesh))
+    built = _build_pool(_pool_edges(g, np.float32, _mesh_device(mesh)),
+                        fill_slack)
+    P = built.P
+    s, st = _init_engine([built] * per, list(keys[r * per:(r + 1) * per]),
+                         n_pad=n, P_pad=P, W=max(_next_pow2(built.dmax), 2),
+                         chunk=min(chunk, max(n, 1)))
     _run_engine_batched(s, st)
     # the reference's shapes: the drop entries (pool slot P, column n) go
     s = s._replace(pool_row=s.pool_row[:, :P], pool_val=s.pool_val[:, :P],

@@ -29,6 +29,11 @@ Every state array has one extra *drop* entry (pool slot ``P``, column
 ``n``) that absorbs the writes the reference discards with
 ``mode="drop"``; nothing reads it unmasked.
 
+The pools are written on the device: a graph's edges are uploaded once a
+call, in pool order (:class:`PoolEdges`), and each strict rung fills its
+stacked slabs with one scatter of them, so no array of pool slots exists
+on the host and none crosses to the device.
+
 The factor is bit-identical to the reference engine's and to the
 sequential oracle for the same key: per-vertex randomness is schedule
 independent (``column_math.column_uniforms``) and the elimination math is
@@ -182,86 +187,105 @@ def _run_engine_batched(s: EngineState, st: EngineStatic, *,
 # pools, compaction, drivers
 # ---------------------------------------------------------------------------
 
-def _cumcount(keys: np.ndarray, n: int) -> np.ndarray:
-    """Occurrence rank of each element within its key group."""
-    order = np.argsort(keys, kind="stable")
-    sk = keys[order]
-    start = np.concatenate([[True], sk[1:] != sk[:-1]])
-    run_start = np.maximum.accumulate(np.where(start, np.arange(sk.size), 0))
-    rank_sorted = np.arange(sk.size) - run_start
-    rank = np.empty_like(rank_sorted)
-    rank[order] = rank_sorted
-    return rank
+class PoolEdges(NamedTuple):
+    """One graph's initial edges on the device, in pool order: stably
+    sorted by their owner column ``src``, so that with ``owned[v] +
+    slack`` slots a column, edge ``i`` sits at slot ``i + slack·src[i]``
+    (its column's base plus its rank among the column's edges) whatever
+    the slack.  Uploaded once a call and reused by every strict rung."""
+    n: int
+    src: torch.Tensor    # int64[m] owner column (min endpoint), ascending
+    dst: torch.Tensor    # int32[m] max endpoint
+    w: torch.Tensor      # [m] weight in the pool's dtype
+    owned: torch.Tensor  # int32[n] initial edges of each column
+    dep: torch.Tensor    # int32[n] initial edges whose max endpoint is v
+    owned_max: int       # largest entry of ``owned`` (0 without edges)
 
 
-def _build_pool(g: Graph, fill_slack: int, dtype):
-    """Static slab layout: cap_k = owned-initial-degree + fill_slack."""
+class Pool(NamedTuple):
+    """Static slab layout of one rung: cap_k = owned-initial-degree +
+    ``slack``; ``P`` slots in all, ``dmax`` the largest capacity."""
+    edges: PoolEdges
+    slack: int
+    P: int
+    dmax: int
+
+
+def _pool_edges(g: Graph, dtype, device) -> PoolEdges:
+    """Upload ``g``'s edges (12 B an edge) and order them into the pool
+    on ``device``."""
     n = g.n
-    owned = np.zeros(n, np.int64)
-    np.add.at(owned, g.src, 1)
-    cap = owned + fill_slack
-    col_base = np.zeros(n + 1, np.int64)
-    np.cumsum(cap, out=col_base[1:])
-    P = int(col_base[-1])
-    pool_row = np.full(P, INVALID_ID, np.int32)
-    pool_val = np.zeros(P, dtype)
-    idx = col_base[g.src] + _cumcount(g.src, n)
-    pool_row[idx] = g.dst
-    pool_val[idx] = g.w.astype(dtype)
-    dep = np.zeros(n, np.int64)
-    np.add.at(dep, g.dst, 1)
-    dmax = int(cap.max()) if n else 1
-    return (pool_row, pool_val, owned.astype(np.int32), dep.astype(np.int32),
-            col_base, cap.astype(np.int32), P, dmax)
+    src = torch.from_numpy(np.ascontiguousarray(g.src, np.int32)).to(device)
+    dst = torch.from_numpy(np.ascontiguousarray(g.dst, np.int32)).to(device)
+    w = torch.from_numpy(np.asarray(g.w).astype(dtype)).to(device)
+    src, order = torch.sort(src, stable=True)
+    owned = torch.bincount(src, minlength=n).to(torch.int32)
+    dep = torch.bincount(dst, minlength=n).to(torch.int32)
+    return PoolEdges(n=n, src=src.to(I64), dst=dst[order], w=w[order],
+                     owned=owned, dep=dep,
+                     owned_max=int(owned.max()) if n else 0)
+
+
+def _build_pool(e: PoolEdges, fill_slack: int) -> Pool:
+    P = e.src.shape[0] + e.n * fill_slack
+    return Pool(edges=e, slack=fill_slack, P=P,
+                dmax=e.owned_max + fill_slack if e.n else 1)
 
 
 def _next_pow2(x: int) -> int:
     return 1 if x <= 1 else 1 << (x - 1).bit_length()
 
 
-def _pad_np(x: np.ndarray, size: int, fill) -> np.ndarray:
-    if x.shape[0] == size:
-        return x
-    return np.concatenate([x, np.full(size - x.shape[0], fill, x.dtype)])
-
-
-def _init_engine(built, ns, keys, *, n_pad: int, P_pad: int, W: int,
-                 chunk: int, device, freeze_on_overflow: bool = False
+def _init_engine(pools: Sequence[Pool], keys, *, n_pad: int, P_pad: int,
+                 W: int, chunk: int, freeze_on_overflow: bool = False
                  ) -> tuple:
-    """Stack per-graph pools (padded to ``n_pad`` vertices and ``P_pad``
-    slots, plus the drop entries) into the engine's state and statics.
-    Phantom vertices ``n..n_pad`` start eliminated."""
-    PR, PV, CF, DP, CB, CP, E0 = [], [], [], [], [], [], []
-    for (pool_row, pool_val, fill, dep, col_base, cap, P, _), n in zip(built,
-                                                                     ns):
-        PR.append(_pad_np(pool_row, P_pad + 1, INVALID_ID))
-        PV.append(_pad_np(pool_val, P_pad + 1, 0))
-        CF.append(_pad_np(fill, n_pad + 1, 0))
-        DP.append(_pad_np(dep, n_pad + 1, 0))
-        CB.append(_pad_np(col_base, n_pad + 1, col_base[-1]))
-        CP.append(_pad_np(cap, n_pad + 1, 0))
-        e0 = np.zeros(n_pad + 1, bool)
-        e0[n:] = True
-        E0.append(e0)
-    B = len(built)
-
-    def dev(xs):
-        return torch.from_numpy(np.stack(xs)).to(device)
-
-    elim = dev(E0)
-    s = EngineState(
-        pool_row=dev(PR), pool_val=dev(PV), col_fill=dev(CF), dep=dev(DP),
-        elim=elim,
-        D=torch.zeros((B, n_pad + 1), dtype=torch.float32, device=device),
-        n_elim=(elim[:, :n_pad].sum(dim=1, dtype=torch.int32)),
-        n_rounds=torch.zeros(B, dtype=torch.int32, device=device),
-        overflow=torch.zeros(B, dtype=torch.int32, device=device))
-    u = torch.zeros((B, n_pad, W), dtype=torch.float32, device=device)
-    for b, (n, key) in enumerate(zip(ns, keys)):
-        u[b, :n] = column_uniforms(
-            key, torch.arange(n, dtype=torch.int32, device=device), W)
-    st = EngineStatic(col_base=dev(CB), cap=dev(CP), u=u, W=W, chunk=chunk,
-                      freeze_on_overflow=freeze_on_overflow)
+    """Write the engine's state and statics for ``pools`` on their edges'
+    device: each graph's slabs padded to ``n_pad`` vertices and ``P_pad``
+    slots, plus the drop entries.  Phantom vertices ``n..n_pad`` start
+    eliminated with no capacity, and their columns' base is the graph's
+    pool end.  The ``parac.init`` span's ``h2d_bytes`` counts what this
+    copies from the host: a graph's size and slack, whatever its pool's."""
+    device = pools[0].edges.src.device
+    B = len(pools)
+    with span("parac.init") as sp:
+        meta = torch.tensor([[p.edges.n, p.slack] for p in pools], dtype=I64)
+        if sp:
+            sp.set(h2d_bytes=meta.numel() * meta.element_size())
+        meta = meta.to(device)
+        pool_row = torch.full((B, P_pad + 1), INVALID_ID, dtype=torch.int32,
+                              device=device)
+        pool_val = torch.zeros((B, P_pad + 1), dtype=pools[0].edges.w.dtype,
+                               device=device)
+        col_fill = torch.zeros((B, n_pad + 1), dtype=torch.int32,
+                               device=device)
+        dep = torch.zeros_like(col_fill)
+        for b, p in enumerate(pools):
+            e = p.edges
+            slot = e.src * p.slack + torch.arange(e.src.shape[0], dtype=I64,
+                                                  device=device)
+            pool_row[b].index_copy_(0, slot, e.dst)
+            pool_val[b].index_copy_(0, slot, e.w)
+            col_fill[b, :e.n] = e.owned
+            dep[b, :e.n] = e.dep
+        live = torch.arange(n_pad + 1, dtype=I64, device=device) < meta[:, :1]
+        cap = torch.where(live, col_fill + meta[:, 1:].to(torch.int32), 0)
+        col_base = torch.zeros((B, n_pad + 1), dtype=I64, device=device)
+        col_base[:, 1:] = torch.cumsum(cap[:, :n_pad], dim=1, dtype=I64)
+        elim = ~live
+        s = EngineState(
+            pool_row=pool_row, pool_val=pool_val, col_fill=col_fill, dep=dep,
+            elim=elim,
+            D=torch.zeros((B, n_pad + 1), dtype=torch.float32, device=device),
+            n_elim=elim[:, :n_pad].sum(dim=1, dtype=torch.int32),
+            n_rounds=torch.zeros(B, dtype=torch.int32, device=device),
+            overflow=torch.zeros(B, dtype=torch.int32, device=device))
+        u = torch.zeros((B, n_pad, W), dtype=torch.float32, device=device)
+        for b, (p, key) in enumerate(zip(pools, keys)):
+            n = p.edges.n
+            u[b, :n] = column_uniforms(
+                key, torch.arange(n, dtype=torch.int32, device=device), W)
+        st = EngineStatic(col_base=col_base, cap=cap, u=u, W=W, chunk=chunk,
+                          freeze_on_overflow=freeze_on_overflow)
     return s, st
 
 
@@ -314,19 +338,20 @@ def factorize_wavefront(g: Graph, key, *, chunk: int = 64,
     n = g.n
     slack = fill_slack
     ck = min(chunk, max(n, 1))
+    edges = None
     for attempt in range(max_retries + 1):
         with span("parac.attempt") as sp:
-            with span("parac.pools"):
-                built = _build_pool(g, slack, dtype)
-            P, dmax = built[6], built[7]
+            with span("parac.pools") as sp_pools:
+                if sp_pools:
+                    sp_pools.set(edges_uploaded=0 if edges else g.m)
+                edges = edges or _pool_edges(g, dtype, device)
+                built = _build_pool(edges, slack)
+            P, dmax = built.P, built.dmax
             W = max(_next_pow2(dmax), 2)
-            with span("parac.init"):
-                s, st = _init_engine([built], [n],
-                                     [np.asarray(key, np.uint32)],
-                                     n_pad=n, P_pad=P, W=W, chunk=ck,
-                                     device=device,
-                                     freeze_on_overflow=strict
-                                     and attempt < max_retries)
+            s, st = _init_engine([built], [np.asarray(key, np.uint32)],
+                                 n_pad=n, P_pad=P, W=W, chunk=ck,
+                                 freeze_on_overflow=strict
+                                 and attempt < max_retries)
             launched = _run_engine_batched(s, st)
             ovf = int(s.overflow[0])
             kept = ovf == 0 or not strict or attempt == max_retries
@@ -369,28 +394,31 @@ def factorize_batched(gs: Sequence[Graph], keys, *, chunk: int = 64,
     slacks = [fill_slack] * B
     results: List[Optional[ACFactor]] = [None] * B
     pending = list(range(B))
+    edges = {}
     for attempt in range(max_retries + 1):
         with span("parac.attempt") as sp:
-            with span("parac.pools"):
-                built = {i: _build_pool(gs[i], slacks[i], dtype)
+            with span("parac.pools") as sp_pools:
+                new = [i for i in pending if i not in edges]
+                edges.update((i, _pool_edges(gs[i], dtype, device))
+                             for i in new)
+                built = {i: _build_pool(edges[i], slacks[i])
                          for i in pending}
+                if sp_pools:
+                    sp_pools.set(edges_uploaded=sum(gs[i].m for i in new))
             n_pad = max(max(gs[i].n for i in pending), 1)
-            P_pad = max(max(built[i][6] for i in pending), 1)
-            dmax_pad = max(built[i][7] for i in pending)
+            P_pad = max(max(built[i].P for i in pending), 1)
+            dmax_pad = max(built[i].dmax for i in pending)
             if bucket:
                 n_pad = _next_pow2(n_pad)
                 P_pad = _next_pow2(P_pad)
                 dmax_pad = _next_pow2(dmax_pad)
             chunk_eff = min(chunk, n_pad)
             W = max(_next_pow2(dmax_pad), 2)
-            with span("parac.init"):
-                s, st = _init_engine([built[i] for i in pending],
-                                     [gs[i].n for i in pending],
-                                     [ks[i] for i in pending], n_pad=n_pad,
-                                     P_pad=P_pad, W=W, chunk=chunk_eff,
-                                     device=device,
-                                     freeze_on_overflow=strict
-                                     and attempt < max_retries)
+            s, st = _init_engine([built[i] for i in pending],
+                                 [ks[i] for i in pending], n_pad=n_pad,
+                                 P_pad=P_pad, W=W, chunk=chunk_eff,
+                                 freeze_on_overflow=strict
+                                 and attempt < max_retries)
             launched = _run_engine_batched(s, st)
             ovfs = s.overflow.tolist()
             retry = []
@@ -399,8 +427,8 @@ def factorize_batched(gs: Sequence[Graph], keys, *, chunk: int = 64,
                 if ovf == 0 or not strict or attempt == max_retries:
                     stats = dict(rounds=int(s.n_rounds[bi]), overflow=ovf,
                                  chunk=chunk, fill_slack=slacks[i],
-                                 pool_size=int(built[i][6]),
-                                 dmax=int(built[i][7]), batched=True,
+                                 pool_size=built[i].P,
+                                 dmax=built[i].dmax, batched=True,
                                  batch_size=len(pending), n_pad=n_pad,
                                  P_pad=P_pad, dmax_pad=dmax_pad)
                     with span("parac.finalize"):

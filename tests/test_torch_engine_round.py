@@ -53,16 +53,16 @@ def g16_ref():
 
 
 def _engine(gs, slack, chunk=256, keys=None, **kw):
-    built = [tparac._build_pool(g, slack, np.float32) for g in gs]
+    built = [tparac._build_pool(tparac._pool_edges(g, np.float32, "cpu"),
+                                slack) for g in gs]
     keys = keys or [key_from_seed(i) for i in range(len(gs))]
     n_pad = max(g.n for g in gs)
-    P_pad = max(b[6] for b in built)
+    P_pad = max(b.P for b in built)
     if len(gs) > 1:
         n_pad, P_pad = tparac._next_pow2(n_pad), tparac._next_pow2(P_pad)
-    W = max(tparac._next_pow2(max(b[7] for b in built)), 2)
-    return tparac._init_engine(built, [g.n for g in gs], keys, n_pad=n_pad,
-                               P_pad=P_pad, W=W, chunk=chunk, device="cpu",
-                               **kw)
+    W = max(tparac._next_pow2(max(b.dmax for b in built)), 2)
+    return tparac._init_engine(built, keys, n_pad=n_pad, P_pad=P_pad, W=W,
+                               chunk=chunk, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -92,16 +92,16 @@ def test_partial_engine_run_freezes_finished_graphs():
     included: extra rounds past the end change nothing."""
     import numpy as np
     g = tgraphs.grid2d(6, 6, seed=3)
-    built = tparac._build_pool(g, 32, np.float32)
-    args = dict(n_pad=g.n, P_pad=built[6], W=64, chunk=8, device="cpu")
-    s, st = tparac._init_engine([built], [g.n], [key_from_seed(0)], **args)
+    built = tparac._build_pool(tparac._pool_edges(g, np.float32, "cpu"), 32)
+    args = dict(n_pad=g.n, P_pad=built.P, W=64, chunk=8)
+    s, st = tparac._init_engine([built], [key_from_seed(0)], **args)
     tparac._run_engine_batched(s, st, check_every=1)
     rounds = int(s.n_rounds[0])
     snap = [t.clone() for t in s]
     for _ in range(5):
         tparac._engine_round(s, st)
     for a, b in zip(snap, s):
-        if a.dim() == 2 and a.shape[1] in (built[6] + 1, g.n + 1):
+        if a.dim() == 2 and a.shape[1] in (built.P + 1, g.n + 1):
             # drop slots/columns absorb masked writes and are never read
             a, b = a[:, :-1], b[:, :-1]
         assert torch.equal(a, b)

@@ -72,13 +72,13 @@ def test_sample_clique_kernel_row_widths(dev, fills):
 def _engine_on(dev, gs, slack):
     from repro_torch.core import parac
     from repro_torch.core.column_math import key_from_seed
-    built = [parac._build_pool(g, slack, np.float32) for g in gs]
+    built = [parac._build_pool(parac._pool_edges(g, np.float32, dev), slack)
+             for g in gs]
     return parac._init_engine(
-        built, [g.n for g in gs], [key_from_seed(i) for i in range(len(gs))],
+        built, [key_from_seed(i) for i in range(len(gs))],
         n_pad=parac._next_pow2(max(g.n for g in gs)),
-        P_pad=parac._next_pow2(max(b[6] for b in built)),
-        W=max(parac._next_pow2(max(b[7] for b in built)), 2), chunk=256,
-        device=dev)
+        P_pad=parac._next_pow2(max(b.P for b in built)),
+        W=max(parac._next_pow2(max(b.dmax for b in built)), 2), chunk=256)
 
 
 @pytest.mark.parametrize("case", ["grid3d16-slack256", "batch2"])
